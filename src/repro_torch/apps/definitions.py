@@ -13,14 +13,16 @@ Six matmul algorithms (Sec. 6.1-6.2) and three scientific workloads
   * the low-level raw-JAX baseline fixture whose LoC Table 1 compares.
 
 Importing this module populates ``repro_torch.apps.registry``. The
-counterpart of ``repro.apps.definitions`` without the tuner's search
-spaces and the simulator's collective patterns.
+counterpart of ``repro.apps.definitions``.
 """
 from __future__ import annotations
 
 import math
 
 from repro_torch.core.commvolume import (
+    GatherScatterCostModel,
+    HaloCostModel,
+    MatmulCostModel,
     MatmulProblem,
     cannon_volume,
     cosma_grid,
@@ -45,6 +47,8 @@ from repro_torch.apps.registry import (
     square_grid,
     two_level_machine,
 )
+from repro_torch.search.space import SearchSpace
+from repro_torch.sim.collectives import CollectivePattern
 
 # Default problem sizes (scaled-down analogues of the paper's runs).
 MATMUL_PROBLEM = MatmulProblem(4096, 4096, 4096)
@@ -290,6 +294,138 @@ def _circuit_tuning(procs: int) -> tuple[float, float]:
     return (v, 0.75 * v)
 
 
+# ------------------------------------------------------------- search spaces
+# Candidate axes + cost objective per app for the mapper autotuner
+# (repro_torch.search). The legacy ``tuning`` pairs above stay as regression
+# oracles the tuner must rediscover; the search space is what it actually
+# explores: grid factorizations (validity-filtered), block/cyclic
+# distribution choices and transform orderings over the machine hierarchy,
+# plus app-specific option axes (circuit's memory placement).
+
+
+def _render_directives(*lines: str):
+    def render(task: str, opts: dict[str, str]) -> str:
+        return "".join(ln.format(task=task, **opts) + "\n" for ln in lines)
+
+    return render
+
+
+def _square_ok(grid: tuple[int, ...]) -> bool:
+    return grid[0] == grid[1]
+
+
+def _replicated_ok(grid: tuple[int, ...]) -> bool:
+    q1, q2, c = grid
+    return q1 == q2 and 1 <= c <= q1 and q1 % c == 0
+
+
+def _solomonik_default_grid(procs: int) -> tuple[int, int, int]:
+    q = math.isqrt(procs)
+    if q * q == procs:
+        return (q, q, 1)
+    return replicated_grid(procs)
+
+
+def _matmul_space(algorithm: str, *, rank: int, grid_ok=None, default_grid=None,
+                  directives=None) -> SearchSpace:
+    # directives=None: the renderer's standard Region/Backpressure fallback
+    # (repro_torch.search.space.standard_directives) applies.
+    return SearchSpace(
+        rank=rank,
+        cost_model=lambda procs, opts: MatmulCostModel(MATMUL_PROBLEM, algorithm),
+        grid_ok=grid_ok,
+        default_grid=default_grid,
+        directives=directives,
+    )
+
+
+CANNON_SPACE = _matmul_space(
+    "cannon", rank=2, grid_ok=_square_ok, default_grid=square_grid,
+    directives=_render_directives(
+        "Region {task} arg0 GPU FBMEM",
+        "Region {task} arg1 GPU FBMEM",
+        "GarbageCollect {task} arg2",
+        "Backpressure {task} 1",
+    ),
+)
+SUMMA_SPACE = _matmul_space(
+    "summa", rank=2, default_grid=square_grid,
+    directives=_render_directives(
+        "Region {task} arg0 GPU FBMEM",
+        "Region {task} arg1 GPU FBMEM",
+        "Backpressure {task} 2",
+    ),
+)
+PUMMA_SPACE = _matmul_space("pumma", rank=2, default_grid=square_grid)
+JOHNSON_SPACE = _matmul_space("johnson", rank=3, default_grid=cube_grid)
+SOLOMONIK_SPACE = _matmul_space(
+    "solomonik", rank=3, grid_ok=_replicated_ok,
+    default_grid=_solomonik_default_grid,
+    directives=_render_directives(
+        "Region {task} arg0 GPU FBMEM",
+        "GarbageCollect {task} arg2",
+        "Backpressure {task} 1",
+    ),
+)
+COSMA_SPACE = _matmul_space(
+    "cosma", rank=3, default_grid=lambda p: tuple(greedy_factorization(p, 3)),
+)
+
+CIRCUIT_SPACE = SearchSpace(
+    rank=1,
+    cost_model=lambda procs, opts: GatherScatterCostModel(
+        CIRCUIT_NODES_PER_PIECE,
+        discount=0.75 if opts.get("arg1") == "ZCMEM" else 1.0,
+    ),
+    option_axes=(("arg1", ("ZCMEM", "FBMEM")),),
+    default_grid=lambda p: (p,),
+    default_options=(("arg1", "FBMEM"),),
+    directives=_render_directives(
+        "Region {task} arg0 GPU FBMEM",
+        "Region {task} arg1 CPU {arg1}",
+        "Backpressure {task} 2",
+    ),
+)
+
+
+def _halo_space(lengths: tuple[int, ...], fields: int) -> SearchSpace:
+    return SearchSpace(
+        rank=len(lengths),
+        cost_model=lambda procs, opts: HaloCostModel(lengths, fields=fields),
+        default_grid=lambda p: greedy_factorization(p, len(lengths)),
+    )
+
+
+STENCIL_SPACE = _halo_space(STENCIL_LENGTHS, 1)
+PENNANT_SPACE = _halo_space(PENNANT_ZONES, PENNANT_FIELDS)
+
+
+# --------------------------------------------------------- collective patterns
+# Wire-level schedules for the simulator (repro_torch.sim): what one step of the
+# app actually puts on the fabric, parameterized by the static problem
+# constants; everything grid-dependent is derived from the mapper's
+# assignment grid inside repro_torch.sim.collectives.build_phases.
+_MATMUL_DIMS = {"m": MATMUL_PROBLEM.m, "n": MATMUL_PROBLEM.n,
+                "k": MATMUL_PROBLEM.k}
+SHIFT_PATTERN = CollectivePattern("shift", dict(_MATMUL_DIMS))
+PANEL_PATTERN = CollectivePattern("panel_broadcast", dict(_MATMUL_DIMS))
+BCAST3D_PATTERN = CollectivePattern("bcast_reduce_3d", dict(_MATMUL_DIMS))
+# The c replication axis (axis 2) carries the 2.5D broadcast/reduce;
+# expert placement keeps it on the intra-node fabric (local_axes).
+SHIFT25D_PATTERN = CollectivePattern(
+    "replicated_shift", {**_MATMUL_DIMS, "local_axes": (2,)},
+)
+CIRCUIT_PATTERN = CollectivePattern(
+    "gather_scatter", {"nodes_per_piece": CIRCUIT_NODES_PER_PIECE},
+)
+STENCIL_PATTERN = CollectivePattern(
+    "halo", {"lengths": STENCIL_LENGTHS, "fields": 1},
+)
+PENNANT_PATTERN = CollectivePattern(
+    "halo", {"lengths": PENNANT_ZONES, "fields": PENNANT_FIELDS},
+)
+
+
 # -------------------------------------------------------------- registration
 register(Application(
     name="cannon",
@@ -304,6 +440,8 @@ register(Application(
     comm_volume=lambda p: cannon_volume(MATMUL_PROBLEM, square_grid(p)),
     step_flops=lambda p: MATMUL_PROBLEM.flops,
     tuning=_cannon_tuning,
+    search_space=CANNON_SPACE,
+    collective=SHIFT_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/cannon_raw.py",
     validate="matmul",
     meta={"problem": MATMUL_PROBLEM},
@@ -322,6 +460,8 @@ register(Application(
     comm_volume=lambda p: summa_volume(MATMUL_PROBLEM, square_grid(p)),
     step_flops=lambda p: MATMUL_PROBLEM.flops,
     tuning=_summa_tuning,
+    search_space=SUMMA_SPACE,
+    collective=PANEL_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/summa_raw.py",
     validate="matmul",
     meta={"problem": MATMUL_PROBLEM},
@@ -340,6 +480,8 @@ register(Application(
     comm_volume=lambda p: summa_volume(MATMUL_PROBLEM, square_grid(p)),
     step_flops=lambda p: MATMUL_PROBLEM.flops,
     tuning=_pumma_tuning,
+    search_space=PUMMA_SPACE,
+    collective=PANEL_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/pumma_raw.py",
     validate="matmul",
     meta={"problem": MATMUL_PROBLEM},
@@ -358,6 +500,8 @@ register(Application(
     comm_volume=lambda p: johnson_volume(MATMUL_PROBLEM, cube_grid(p)),
     step_flops=lambda p: MATMUL_PROBLEM.flops,
     tuning=_johnson_tuning,
+    search_space=JOHNSON_SPACE,
+    collective=BCAST3D_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/johnson_raw.py",
     validate="matmul",
     meta={"problem": MATMUL_PROBLEM},
@@ -376,6 +520,8 @@ register(Application(
     comm_volume=lambda p: solomonik_volume(MATMUL_PROBLEM, replicated_grid(p)),
     step_flops=lambda p: MATMUL_PROBLEM.flops,
     tuning=_solomonik_tuning,
+    search_space=SOLOMONIK_SPACE,
+    collective=SHIFT25D_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/solomonik_raw.py",
     validate="matmul",
     meta={"problem": MATMUL_PROBLEM},
@@ -394,6 +540,8 @@ register(Application(
     comm_volume=lambda p: cosma_volume(MATMUL_PROBLEM, p),
     step_flops=lambda p: MATMUL_PROBLEM.flops,
     tuning=_cosma_tuning,
+    search_space=COSMA_SPACE,
+    collective=BCAST3D_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/cosma_raw.py",
     validate="matmul",
     meta={"problem": MATMUL_PROBLEM},
@@ -412,6 +560,8 @@ register(Application(
     comm_volume=_circuit_volume,
     step_flops=lambda p: 12.0 * CIRCUIT_WIRES_PER_PIECE * p,
     tuning=_circuit_tuning,
+    search_space=CIRCUIT_SPACE,
+    collective=CIRCUIT_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/circuit_raw.py",
     validate="circuit",
     meta={"nodes_per_piece": CIRCUIT_NODES_PER_PIECE},
@@ -430,6 +580,8 @@ register(Application(
     comm_volume=_halo_volume(STENCIL_LENGTHS, 1),
     step_flops=lambda p: 5.0 * STENCIL_LENGTHS[0] * STENCIL_LENGTHS[1],
     tuning=_halo_tuning(STENCIL_LENGTHS, 1),
+    search_space=STENCIL_SPACE,
+    collective=STENCIL_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/stencil_raw.py",
     validate="stencil",
     meta={"lengths": STENCIL_LENGTHS, "flops_per_point": 5.0,
@@ -449,6 +601,8 @@ register(Application(
     comm_volume=_halo_volume(PENNANT_ZONES, PENNANT_FIELDS),
     step_flops=lambda p: 20.0 * PENNANT_ZONES[0] * PENNANT_ZONES[1],
     tuning=_halo_tuning(PENNANT_ZONES, PENNANT_FIELDS),
+    search_space=PENNANT_SPACE,
+    collective=PENNANT_PATTERN,
     lowlevel_fixture="benchmarks/lowlevel/pennant_raw.py",
     validate="pennant",
     meta={"lengths": PENNANT_ZONES, "flops_per_point": 20.0,

@@ -15,10 +15,8 @@ The end-to-end runner (`python -m repro_torch.apps.run`) and
 `chip_smoke.py` iterate this registry instead of hard-coding app lists;
 new workloads plug in by calling :func:`register`.
 
-The counterpart of ``repro.apps.registry``. The tuner's ``search_space``
-and the simulator's ``collective`` fields are not carried: the tuner and
-the simulator are not part of this package yet. Only the execution hooks
-in ``repro_torch.apps.validate`` touch tensors.
+The counterpart of ``repro.apps.registry``. Only the execution hooks in
+``repro_torch.apps.validate`` touch tensors.
 """
 from __future__ import annotations
 
@@ -33,6 +31,8 @@ from repro_torch.core.machine import GPU, Machine
 from repro_torch.core.mapper import Mapper
 from repro_torch.core.pspace import ProcSpace
 from repro_torch.core.translate import MappingPlan, to_spmd
+from repro_torch.search.space import SearchSpace
+from repro_torch.sim.collectives import CollectivePattern
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 
@@ -65,6 +65,12 @@ class Application:
     # as a REGRESSION ORACLE: the autotuner must rediscover (or beat) the
     # tuned volume; tests assert it, nothing trusts it as ground truth.
     tuning: Callable[[int], tuple[float, float]] | None = None
+    # Candidate axes + cost model for the mapper autotuner (repro_torch.search).
+    search_space: SearchSpace | None = None
+    # The wire-level communication pattern the app's step emits, consumed
+    # by the discrete-event simulator (repro_torch.sim) to price a mapping in
+    # seconds against the exact tile->processor assignment.
+    collective: CollectivePattern | None = None
     lowlevel_fixture: str = ""                  # repo-relative baseline path
     validate: str | None = None                 # hook in repro_torch.apps.validate
     meta: dict = dataclasses.field(default_factory=dict)

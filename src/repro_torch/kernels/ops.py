@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
 
 
@@ -48,12 +49,22 @@ def stencil_interior(padded: torch.Tensor) -> torch.Tensor:
     return st_mod.stencil_cuda(padded, interior=True)
 
 
+def segment_rowmax(vals: torch.Tensor, seg: int = 1) -> torch.Tensor:
+    """Per-row max of length-``seg`` segment sums of a (rows, cols) table
+    with vals >= 0 (the pricing engine's congestion reduce)."""
+    if _on_cpu(vals):
+        return ref.segment_rowmax(vals, seg)
+    return sr_mod.segment_rowmax_cuda(vals, seg)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
     return {"matmul": mm_mod.matmul_cuda.launches,
-            "stencil": st_mod.stencil_cuda.launches}
+            "stencil": st_mod.stencil_cuda.launches,
+            "segment_rowmax": sr_mod.segment_rowmax_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     mm_mod.matmul_cuda.launches = 0
     st_mod.stencil_cuda.launches = 0
+    sr_mod.segment_rowmax_cuda.launches = 0

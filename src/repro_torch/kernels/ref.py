@@ -45,3 +45,9 @@ def stencil(field: torch.Tensor) -> torch.Tensor:
     """One 5-point Jacobi sweep, edge-replicate boundaries, batched over the
     leading dims."""
     return stencil_interior(edge_pad(field))
+
+
+def segment_rowmax(vals: torch.Tensor, seg: int = 1) -> torch.Tensor:
+    """Per-row max of contiguous length-``seg`` segment sums (vals >= 0)."""
+    rows, cols = vals.shape
+    return vals.reshape(rows, cols // seg, seg).sum(2).amax(1)

@@ -5,7 +5,9 @@ Run on a machine with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same inputs,
-at the JAX package's kernel tolerances (fp32 1e-4, bf16 2e-2).
+at the JAX package's kernel tolerances (fp32 1e-4, bf16 2e-2; float64
+segment_rowmax 1e-12), and the pricing engine on the card against the
+NumPy engine (1e-6 relative).
 """
 import pytest
 import torch
@@ -14,6 +16,7 @@ from repro_torch import apps
 from repro_torch.apps import validate
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import matmul as mm_mod
+from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -76,3 +79,62 @@ def test_apps_on_the_card(card, name):
         assert ops.launch_counts()["matmul"] > 0
     if name == "stencil":
         assert ops.launch_counts()["stencil"] > 0
+
+
+# ------------------------------------------------------------ segment rowmax
+SR_TOL = {torch.float64: dict(rtol=1e-12, atol=1e-12),
+          torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+@pytest.mark.parametrize("shape", [(2048, 4096), (1000, 780), (7, 8), (1, 64),
+                                   (3, 1000)])
+@pytest.mark.parametrize("seg", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_segment_rowmax_kernel_matches_plain(card, shape, seg, dtype):
+    rows, cols = shape
+    cols -= cols % seg
+    gen = torch.Generator(device=card).manual_seed(seg)
+    vals = torch.rand((rows, cols), generator=gen, device=card, dtype=dtype)
+    out = sr_mod.segment_rowmax_cuda(vals, seg)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (rows,)
+    torch.testing.assert_close(out, ref.segment_rowmax(vals, seg), **SR_TOL[dtype])
+    assert ops.launch_counts()["segment_rowmax"] == 1
+
+
+def test_segment_rowmax_kernel_refuses_ragged_segments(card):
+    with pytest.raises(ValueError, match="divide"):
+        sr_mod.segment_rowmax_cuda(torch.rand((4, 10), device=card), 4)
+    assert ops.launch_counts()["segment_rowmax"] == 0
+
+
+@pytest.mark.parametrize("name", list(apps.PAPER_APPS))
+def test_pricer_on_the_card_matches_numpy_engine(card, name):
+    """The torch engine on the card (kernel reduction) against the port's
+    NumPy engine on seeded random placements, and the kernel counter
+    rising for the dense schedule."""
+    import numpy as np
+
+    from repro_torch.sim.cost import time_search_space
+    from repro_torch.sim.torch_backend import _export_for, to_torch
+
+    app = apps.get(name)
+    space = time_search_space(app)
+    model = space.cost_model(256, dict(space.default_options))
+    grid = next(g for g in app.search_space.grids(256) if _simulable(model, g))
+    eng = model.batch(grid)
+    stack = np.stack([np.random.default_rng(i).permutation(256) for i in range(6)])
+    got = to_torch(eng, device="cuda").step_times(stack)
+    np.testing.assert_allclose(got, eng.step_times(stack), rtol=1e-6, atol=0)
+    if _export_for(eng.schedule, eng.topology).mode == "dense":
+        assert ops.launch_counts()["segment_rowmax"] > 0
+    handle = to_torch(eng, device="cuda").step_times_async(stack)
+    np.testing.assert_array_equal(handle.result(), got)
+
+
+def _simulable(model, grid) -> bool:
+    try:
+        model._validate(grid)
+    except ValueError:
+        return False
+    return True

@@ -6,6 +6,7 @@ in interpret mode, on the same numpy-seeded inputs, at the shapes, dtypes
 and tolerances of ``tests/test_kernels.py``. The CUDA kernels themselves
 run only on a card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,9 +14,11 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.matmul import matmul_pallas
+from repro.kernels.segment_reduce import segment_rowmax_pallas
 from repro.kernels.stencil import stencil_pallas
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import matmul as mm_mod
+from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
 
 # The fp32 and bf16 tolerances of tests/test_kernels.py (blocked-vs-flat
@@ -24,6 +27,7 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+NO_LAUNCHES = {"matmul": 0, "stencil": 0, "segment_rowmax": 0}
 
 
 def _normal(seed, shape):
@@ -55,7 +59,7 @@ def test_plain_matmul_matches_pallas(m, k, n, dtype):
                      torch.from_numpy(b).to(TORCH[dtype]))
     assert out.dtype == TORCH[dtype]
     _close(out, expect, dtype)
-    assert ops.launch_counts() == {"matmul": 0, "stencil": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_plain_matmul_batched_is_per_rank_product():
@@ -80,7 +84,7 @@ def test_plain_stencil_matches_pallas(m, n, bm):
     expect = stencil_pallas(jnp.asarray(f), bm=bm, interpret=True)
     out = ops.stencil_step(torch.from_numpy(f))
     _close(out, expect, "float32")
-    assert ops.launch_counts() == {"matmul": 0, "stencil": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_plain_stencil_interior_is_the_padded_sweep():
@@ -93,7 +97,37 @@ def test_plain_stencil_interior_is_the_padded_sweep():
         _close(out[r], jref.stencil(jnp.asarray(f[r])), "float32")
     torch.testing.assert_close(out, ops.stencil_step(torch.from_numpy(f)),
                                rtol=0, atol=0)
-    assert ops.launch_counts() == {"matmul": 0, "stencil": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+# ----------------------------------------------------------- segment rowmax
+# The shapes of tests/test_kernels.py's segment_rowmax tests; float64 is
+# the pricer's default dtype.
+SR_SHAPES = [(5, 512, 1), (8, 512, 8), (17, 96, 4), (3, 1024, 64), (1, 64, 64),
+             (13, 256, 8), (6, 192, 4), (9, 300, 1)]
+SR_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+          "float64": dict(rtol=1e-12, atol=1e-12)}
+
+
+@pytest.mark.parametrize("rows,cols,seg", SR_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_plain_segment_rowmax_matches_pallas(rows, cols, seg, dtype):
+    vals = np.abs(np.random.default_rng(rows * cols + seg)
+                  .normal(size=(rows, cols))).astype(dtype)
+    with jax.enable_x64(dtype == "float64"):
+        expect = np.asarray(segment_rowmax_pallas(jnp.asarray(vals), seg,
+                                                  interpret=True))
+    assert expect.dtype == np.dtype(dtype)
+    out = ops.segment_rowmax(torch.from_numpy(vals), seg)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (rows,)
+    np.testing.assert_allclose(out.numpy(), expect, **SR_TOL[dtype])
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_plain_segment_rowmax_seg_one_is_row_max():
+    vals = torch.rand((9, 300), dtype=torch.float64)
+    torch.testing.assert_close(ops.segment_rowmax(vals), vals.amax(1),
+                               rtol=0, atol=0)
 
 
 # ----------------------------------------------------------------- dispatch
@@ -109,7 +143,11 @@ def test_wrappers_refuse_non_cuda_tensors():
         ops.matmul(a.to("meta"), a.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         ops.stencil_step(a.to("meta"))
-    assert ops.launch_counts() == {"matmul": 0, "stencil": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        sr_mod.segment_rowmax_cuda(a, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.segment_rowmax(a.to("meta"), 2)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_build_needs_nvcc_and_keys_on_sources(monkeypatch, tmp_path):
