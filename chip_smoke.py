@@ -28,16 +28,41 @@ NVIDIA H100:
    engine on the card (launch counters set to 0 just before, read just
    after) and once on the NumPy engine; the winners must be the same and
    the placed seconds agree within 1e-6 relative;
-6. prints one JSON ``kernels`` line (matmul and stencil launches from the
-   execute path, segment_rowmax launches from the tune path), the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+6. holds the LM kernels against their plain versions at the serving
+   path's shapes and times them: flash_attention at the hymba-1.5b
+   prefill (B=4, S=2048, 25 heads over 5 KV heads, d=64, window 1024),
+   the smollm-135m prefill (9 over 3 heads, no window) and a ragged
+   length, in bf16 (rtol=atol=2e-2) and fp32 (1e-4), with
+   ``F.scaled_dot_product_attention`` as the yardstick; mamba_scan at the
+   hymba prefill (B=4, T=2048, d_inner 3200, state 16) and a ragged one,
+   fp32 (1e-4);
+7. drives the LM serving path at hymba-1.5b's full width (32 layers,
+   weights from a seeded generator on the card): the prefill step with the
+   kernels (B=4, prompt 2048 > the 1024 window), counters set to 0 just
+   before and read just after (32 launches of each kernel); in fp32 its
+   last logits against the plain prefill (rtol 1e-2, atol 5e-2, the
+   mixer tolerance of tests/test_kernels.py), the bf16 difference
+   reported, and the median prefill wall time with and without the
+   kernels; a 256-token prompt teacher-forced through ``decode_step``
+   against the kernel prefill's last logits (fp32, 2e-3); the serving CLI
+   (batch 4, prompt 32, gen 16) and a 4-slot ``ContinuousBatcher``
+   answering 8 requests of prompts 16-128; then smollm-135m's prefill
+   (no window) with the kernels against its plain prefill (fp32, 2e-3);
+8. prints one JSON ``kernels`` line (matmul and stencil launches from the
+   execute path, segment_rowmax launches from the tune path,
+   flash_attention and mamba_scan launches from the hymba prefill), the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA card,
 or without the rest of the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -72,7 +97,18 @@ KERNELS = {
                 "replaces": "src/repro/kernels/stencil.py:36"},
     "segment_rowmax": {"source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
                        "replaces": "src/repro/kernels/segment_reduce.py:52"},
+    "flash_attention": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention.py:79"},
+    "mamba_scan": {"source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "replaces": "src/repro/kernels/mamba_scan.py:58"},
 }
+# The LM serving path: hymba-1.5b's prefill shape and the checks' limits.
+LM_ARCH = "hymba-1.5b"
+LM_BATCH, LM_PROMPT = 4, 2048
+PREFILL_TOL = dict(rtol=1e-2, atol=5e-2)   # tests/test_kernels.py's mixer tolerance
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_models.py's decode check
+DECODE_PROMPT = 256
+DENSE_ARCH = "smollm-135m"
 
 
 def fail(msg: str) -> None:
@@ -483,6 +519,313 @@ def tune_phase() -> int:
     return launches
 
 
+def _attention_pairs(S: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    total = 0
+    for q in range(S):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        hi = q + 1 if causal else S
+        total += hi - lo
+    return total
+
+
+def _sdpa(q, k, v, window: int):
+    """The library yardstick: one ``F.scaled_dot_product_attention`` call
+    on the (B, heads, S, d) views, causal with the window as a boolean
+    mask, GQA in the call."""
+    import torch
+    import torch.nn.functional as F
+
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    ok = pos[:, None] >= pos[None, :]
+    if window > 0:
+        ok = ok & (pos[:, None] - pos[None, :] < window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                                  enable_gqa=True)
+
+
+def lm_kernel_phase() -> dict:
+    """flash_attention and mamba_scan against their plain versions at the
+    LM serving path's shapes, then timed with their bounds."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import mamba_scan as ms_mod
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    # (B, S, H, Kv, d, window): hymba prefill, smollm prefill, ragged.
+    shapes = [(LM_BATCH, LM_PROMPT, 25, 5, 64, 1024), (LM_BATCH, LM_PROMPT, 9, 3, 64, 0),
+              (2, 1000, 25, 5, 64, 1024)]
+    fa_rows, fa_err = {}, 0.0
+    for B, S, H, Kv, d, window in shapes:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(dtype)
+            out = fa_mod.flash_attention_cuda(q, k, v, window=window)
+            expect = ops.flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            tag = f"flash_attention {dt} B={B} S={S} H={H}/{Kv} d={d} window={window}"
+            if not torch.isfinite(out.float()).all():
+                fail(f"{tag}: non-finite output")
+            err = check_close(tag, out, expect, dt)
+            fa_err = max(fa_err, err)
+            print(f"parity {tag}: max_abs_err={err:.3e}")
+            if S != LM_PROMPT:
+                continue
+            ms = time_ms(lambda: fa_mod.flash_attention_cuda(q, k, v, window=window), reps=10)
+            plain = time_ms(lambda: ops.flash_attention_plain(q, k, v, window=window),
+                            reps=3, warmup=1)
+            lib = time_ms(_sdpa(q, k, v, window), reps=10)
+            es = q.element_size()
+            nbytes = es * (2 * q.numel() + k.numel() + v.numel())
+            bnd, by = bound_ms(4.0 * d * B * H * _attention_pairs(S, window), nbytes, dt)
+            print(f"time   {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"sdpa {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+            fa_rows[(H, dt)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                                "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
+                                "shape": [B, S, H, Kv, d, window], "dtype": dt}
+
+    # mamba_scan: hymba's prefill shape (timed) and a ragged one.
+    ms_err, ms_row = 0.0, None
+    for B, T, di, n in ((LM_BATCH, LM_PROMPT, 3200, 16), (2, 100, 24, 8)):
+        xs = 0.5 * torch.randn((B, T, di), generator=gen, device="cuda")
+        dtt = 0.2 * torch.nn.functional.softplus(
+            torch.randn((B, T, di), generator=gen, device="cuda"))
+        Bs = 0.5 * torch.randn((B, T, n), generator=gen, device="cuda")
+        Cs = 0.5 * torch.randn((B, T, n), generator=gen, device="cuda")
+        A = -torch.exp(0.3 * torch.randn((di, n), generator=gen, device="cuda"))
+        y, s = ms_mod.mamba_scan_cuda(xs, dtt, Bs, Cs, A)
+        y_ref, s_ref = ref.mamba_scan(xs, dtt, Bs, Cs, A)
+        torch.cuda.synchronize()
+        tag = f"mamba_scan float32 B={B} T={T} di={di} n={n}"
+        err = max(check_close(tag + " y", y, y_ref, "float32"),
+                  check_close(tag + " state", s, s_ref, "float32"))
+        ms_err = max(ms_err, err)
+        print(f"parity {tag}: max_abs_err={err:.3e}")
+        if T != LM_PROMPT:
+            continue
+        ms = time_ms(lambda: ms_mod.mamba_scan_cuda(xs, dtt, Bs, Cs, A), reps=20)
+        plain = time_ms(lambda: ref.mamba_scan(xs, dtt, Bs, Cs, A), reps=3, warmup=1)
+        elems = B * T * di * n
+        nbytes = 4.0 * (3 * B * T * di + 2 * B * T * n + di * n + B * di * n)
+        bnd, by = bound_ms(7.0 * elems + B * T * di, nbytes, "float32")
+        print(f"time   {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}); no single PyTorch call computes the scan")
+        ms_row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+                  "bound_by": by, "shape": [B, T, di, n], "dtype": "float32"}
+    main_fa = fa_rows[(25, "bfloat16")]
+    return {
+        "flash_attention": {**main_fa, "max_abs_err": fa_err,
+                            "float32": fa_rows[(25, "float32")],
+                            "smollm": {"bfloat16": fa_rows[(9, "bfloat16")],
+                                       "float32": fa_rows[(9, "float32")]}},
+        "mamba_scan": {**ms_row, "max_abs_err": ms_err},
+    }
+
+
+def _full(arch: str, dtype: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    return build(dataclasses.replace(get_config(arch), dtype=dtype))
+
+
+def _tokens(cfg, B: int, S: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+
+
+def _wall_s(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _counted(step, params, toks, expect: dict, what: str):
+    """One counted run of a prefill step: counters to 0 just before, read
+    just after; fails unless each kernel launched ``expect[name]`` times."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = step(params, toks)
+    torch.cuda.synchronize()
+    got = {k: ops.launch_counts()[k] for k in expect}
+    if got != expect:
+        fail(f"{what}: kernel launches {got}, expected {expect}")
+    if not torch.isfinite(out.float()).all():
+        fail(f"{what}: non-finite logits")
+    return out, got
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def lm_prefill_phase() -> tuple[dict, dict]:
+    """The LM serving path's prefill at hymba-1.5b's full width. Returns
+    the main path's launch counts and the numbers for the report."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    model, model32 = _full(LM_ARCH, "bfloat16"), _full(LM_ARCH, "float32")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {model.n_params} parameters (fp32 on the card, "
+          f"{time.perf_counter() - t0:.2f} s to draw), {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, window "
+          f"{cfg.sliding_window}, d_inner {cfg.d_inner}, state {cfg.ssm_state}")
+    toks = _tokens(cfg, LM_BATCH, LM_PROMPT, seed=1)
+    L = cfg.n_layers
+    expect = {"flash_attention": L, "mamba_scan": L}
+    none = {"flash_attention": 0, "mamba_scan": 0}
+    kern, plain = make_prefill_step(model), make_prefill_step(model, use_kernel=False)
+    kern32 = make_prefill_step(model32)
+    plain32 = make_prefill_step(model32, use_kernel=False)
+
+    # The main path: one counted bf16 prefill through the kernels.
+    out_bf16, counts = _counted(kern, params, toks, expect, "bf16 prefill")
+    want_shape = (LM_BATCH, 1, cfg.padded_vocab)
+    if tuple(out_bf16.shape) != want_shape:
+        fail(f"prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
+    out32, _ = _counted(kern32, params, toks, expect, "fp32 prefill")
+    ref32, _ = _counted(plain32, params, toks, none, "fp32 plain prefill")
+    err32 = _max_diff(out32, ref32)
+    print(f"prefill fp32 B={LM_BATCH} S={LM_PROMPT}: kernels vs plain max |diff| "
+          f"{err32:.3e} (max |logit| {float(ref32.abs().max()):.3e})")
+    if not torch.allclose(out32, ref32, **PREFILL_TOL):
+        fail(f"fp32 kernel prefill disagrees with the plain prefill: max |diff| "
+             f"{err32:.3e} beyond {PREFILL_TOL}")
+    ref_bf16, _ = _counted(plain, params, toks, none, "bf16 plain prefill")
+    print(f"prefill bf16: kernels vs fp32 plain max |diff| "
+          f"{_max_diff(out_bf16, ref32):.3e}, kernels vs bf16 plain "
+          f"{_max_diff(out_bf16, ref_bf16):.3e}, bf16 plain vs fp32 plain "
+          f"{_max_diff(ref_bf16, ref32):.3e} (reported, no limit)")
+
+    # Wall time in turns: kernels, plain, plain, kernels, kernels, plain.
+    walls = {"kernels": [], "plain": []}
+    for which in ("kernels", "plain", "plain", "kernels", "kernels", "plain"):
+        step = kern if which == "kernels" else plain
+        walls[which].append(_wall_s(lambda: step(params, toks)))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"prefill bf16 B={LM_BATCH} S={LM_PROMPT} wall s, median of 3: kernels "
+          f"{med['kernels']:.4f} {walls['kernels']}, plain {med['plain']:.4f} "
+          f"{walls['plain']}")
+    return counts, {"params": params, "model": model, "model32": model32,
+                    "prefill_s": med, "err32": err32}
+
+
+def lm_decode_phase(state: dict) -> None:
+    """A 256-token prompt teacher-forced through decode_step (fp32) against
+    the kernel prefill's last logits."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    model32, params = state["model32"], state["params"]
+    toks = _tokens(model32.cfg, 1, DECODE_PROMPT, seed=2)
+    want = make_prefill_step(model32)(params, toks)
+    cache = model32.init_cache(1, DECODE_PROMPT, device="cuda")
+    step = make_serve_step(model32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_PROMPT):
+        logits, cache = step(params, cache, t, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = _max_diff(logits, want)
+    print(f"decode fp32: {DECODE_PROMPT} teacher-forced steps (B=1) in {wall:.3f} s "
+          f"({DECODE_PROMPT / wall:.1f} tok/s); last logits vs kernel prefill max "
+          f"|diff| {err:.3e}")
+    if not torch.allclose(logits, want, **DECODE_TOL):
+        fail(f"decode disagrees with the prefill: max |diff| {err:.3e} beyond "
+             f"{DECODE_TOL}")
+
+
+def lm_serving_phase(state: dict) -> None:
+    """The serving CLI at full width, then the continuous batcher."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--arch", LM_ARCH, "--scale", "full", "--batch", "4",
+                         "--prompt-len", "32", "--gen", "16"])
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"serve: {line}")
+    if rc != 0:
+        fail(f"repro_torch.launch.serve exited {rc}")
+    row = json.loads(lines[-1])
+    if not (row["decode_tok_per_s"] > 0 and row["decode_s"] > 0):
+        fail(f"serve reported no decode throughput: {row}")
+    torch.cuda.empty_cache()
+
+    model, params = state["model"], state["params"]
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size,
+                                               size=int(rng.integers(16, 129))),
+                    max_new_tokens=16) for i in range(8)]
+    batcher = ContinuousBatcher(model, params, n_slots=4, max_len=128 + 16 + 1,
+                                device="cuda")
+    t0 = time.perf_counter()
+    for r in reqs:
+        batcher.submit(r)
+    stats = batcher.run_until_drained()
+    wall = time.perf_counter() - t0
+    summary = stats.summary()
+    print(f"batcher: 4 slots, 8 requests (prompts {[len(r.prompt) for r in reqs]}), "
+          f"{wall:.3f} s: {json.dumps(summary)}")
+    if summary["completed"] != 8 or any(len(r.generated) != 16 for r in reqs):
+        fail(f"the batcher did not answer all 8 requests with 16 tokens: {summary}")
+
+
+def dense_prefill_phase() -> dict:
+    """smollm-135m at full width: the causal flash shape with no window."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    model, model32 = _full(DENSE_ARCH, "bfloat16"), _full(DENSE_ARCH, "float32")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    toks = _tokens(model.cfg, LM_BATCH, LM_PROMPT, seed=3)
+    L = model.cfg.n_layers
+    expect = {"flash_attention": L, "mamba_scan": 0}
+    _, counts = _counted(make_prefill_step(model), params, toks, expect,
+                         f"{DENSE_ARCH} bf16 prefill")
+    out32, _ = _counted(make_prefill_step(model32), params, toks, expect,
+                        f"{DENSE_ARCH} fp32 prefill")
+    ref32 = make_prefill_step(model32, use_kernel=False)(params, toks)
+    err = _max_diff(out32, ref32)
+    walls = [_wall_s(lambda: make_prefill_step(model)(params, toks)) for _ in range(3)]
+    print(f"{DENSE_ARCH} prefill B={LM_BATCH} S={LM_PROMPT}: {counts} launches; fp32 "
+          f"kernels vs plain max |diff| {err:.3e}; bf16 kernel prefill wall s "
+          f"{walls}")
+    if not torch.allclose(out32, ref32, **DECODE_TOL):
+        fail(f"{DENSE_ARCH} kernel prefill disagrees with the plain prefill: max "
+             f"|diff| {err:.3e} beyond {DECODE_TOL}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -512,10 +855,20 @@ def main() -> int:
     mm_shapes, stencil_block, stencil_field = app_shapes()
     rows = parity_and_timing(mm_shapes, stencil_block, stencil_field)
     rows.update(segment_rowmax_phase())
+    rows.update(lm_kernel_phase())
     counts = apps_phase()
     steady_times()
     pricer_phase()
     counts["segment_rowmax"] = tune_phase()
+    torch.cuda.empty_cache()
+    lm_counts, lm_state = lm_prefill_phase()
+    counts.update(lm_counts)
+    lm_decode_phase(lm_state)
+    lm_serving_phase(lm_state)
+    del lm_state
+    torch.cuda.empty_cache()
+    rows["flash_attention"]["smollm"]["launches"] = dense_prefill_phase()[
+        "flash_attention"]
 
     kernels = []
     for name, row in rows.items():

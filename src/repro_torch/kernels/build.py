@@ -24,20 +24,27 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("matmul.cu", "stencil.cu", "segment_reduce.cu", "errors.cu")
+SOURCES = ("matmul.cu", "stencil.cu", "segment_reduce.cu", "flash_attention.cu",
+           "mamba_scan.cu", "errors.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libmapple_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> argument types of each C entry point (all return an int error).
-_VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "mapple_matmul_f32": (_VP, _VP, _VP, _I, _I, _I, _I, _VP),
     "mapple_matmul_bf16": (_VP, _VP, _VP, _I, _I, _I, _I, _VP),
     "mapple_stencil_f32": (_VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     "mapple_segment_rowmax_f32": (_VP, _VP, _I64, _I64, _I, _VP),
     "mapple_segment_rowmax_f64": (_VP, _VP, _I64, _I64, _I, _VP),
+    # q, k, v, o, strides (12 x int64 on the host), B, S, H, Kv, d, scale,
+    # window, causal, stream
+    "mapple_flash_attention_f32": (_VP,) * 5 + (_I,) * 5 + (_F, _I, _I, _VP),
+    "mapple_flash_attention_bf16": (_VP,) * 5 + (_I,) * 5 + (_F, _I, _I, _VP),
+    # xs, dt, Bs, Cs, A, y, state, B, T, di, n, stream
+    "mapple_mamba_scan_f32": (_VP,) * 7 + (_I,) * 4 + (_VP,),
 }
 
 

@@ -1,0 +1,73 @@
+"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces ``repro.kernels.flash_attention.flash_attention_pallas``: causal
+(optionally sliding-window) softmax attention with an fp32 online
+softmax, masked scores at -1e30 and the denominator clamped at 1e-30.
+Unlike the Pallas kernel it takes the model layout, q (B,S,H,d) and k/v
+(B,S,Kv,d), reading KV head ``h // (H/Kv)`` for query head ``h`` (no GQA
+repeat, no transpose), and any S. fp32 and bf16; d a multiple of 16 up
+to 128.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+ENTRY = {torch.float32: "mapple_flash_attention_f32",
+         torch.bfloat16: "mapple_flash_attention_bf16"}
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+_GRID_Y_MAX = 65535            # one grid row per (batch, head)
+
+
+def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float | None = None, window: int = 0,
+                         causal: bool = True) -> torch.Tensor:
+    """Launch the kernel: q (B,S,H,d), k/v (B,S,Kv,d) CUDA tensors of one
+    dtype -> (B,S,H,d) in q's dtype."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device.type != "cuda":
+            raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                             f"{name} on {x.device}")
+        if x.ndim != 4:
+            raise ValueError(f"flash_attention kernel takes (B,S,heads,d), got "
+                             f"{name} of shape {tuple(x.shape)}")
+    if q.dtype not in ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
+                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    B, S, H, d = q.shape
+    Kv = k.shape[2]
+    if k.shape != (B, S, Kv, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention kernel: k/v {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if Kv < 1 or H % Kv:
+        raise ValueError(f"flash_attention kernel: {H} query heads are not a "
+                         f"multiple of {Kv} KV heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
+    if S < 1 or B * H > _GRID_Y_MAX:
+        raise ValueError(f"flash_attention kernel shape out of range: "
+                         f"{tuple(q.shape)}")
+    q, k, v = (_last_dim_contiguous(x) for x in (q, k, v))
+    scale = float(scale) if scale is not None else d ** -0.5
+    out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out)
+                                      for s in x.stride()[:3]))
+    lib = build.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib.lib, ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.addressof(strides), B, S, H, Kv, d, scale, int(window),
+        int(bool(causal)), stream)
+    build.check(lib, err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

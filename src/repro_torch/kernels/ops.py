@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as sr_mod
@@ -57,14 +59,55 @@ def segment_rowmax(vals: torch.Tensor, seg: int = 1) -> torch.Tensor:
     return sr_mod.segment_rowmax_cuda(vals, seg)
 
 
+def flash_attention_plain(q, k, v, *, window: int = 0, scale=None,
+                          causal: bool = True) -> torch.Tensor:
+    """The plain version in the model layout, as ``repro.kernels.ops``
+    wraps its kernel: GQA by repeating the KV heads, then (B,S,H,hd) ->
+    (BH,S,hd) and back around ``ref.flash_attention``."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    if Kv != H:
+        k = torch.repeat_interleave(k, H // Kv, dim=2)
+        v = torch.repeat_interleave(v, H // Kv, dim=2)
+    qf = q.transpose(1, 2).reshape(B * H, S, hd)
+    kf = k.transpose(1, 2).reshape(B * H, S, hd)
+    vf = v.transpose(1, 2).reshape(B * H, S, hd)
+    out = ref.flash_attention(qf, kf, vf, window=window, scale=scale,
+                              causal=causal)
+    return out.reshape(B, H, S, hd).transpose(1, 2)
+
+
+def flash_attention(q, k, v, *, window: int = 0, scale=None,
+                    causal: bool = True) -> torch.Tensor:
+    """Model-layout attention: q (B,S,H,hd), k/v (B,S,Kv,hd) -> (B,S,H,hd).
+    The kernel reads the layout and the GQA grouping in place."""
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, window=window, scale=scale,
+                                     causal=causal)
+    return fa_mod.flash_attention_cuda(q, k, v, window=window, scale=scale,
+                                       causal=causal)
+
+
+def mamba_scan(xs, dt, Bs, Cs, A):
+    """Selective scan from a zero state: xs/dt (B,T,di), Bs/Cs (B,T,n),
+    A (di,n) -> (y (B,T,di), final state (B,di,n))."""
+    if _on_cpu(xs, dt, Bs, Cs, A):
+        return ref.mamba_scan(xs, dt, Bs, Cs, A)
+    return ms_mod.mamba_scan_cuda(xs, dt, Bs, Cs, A)
+
+
+_COUNTED = {"matmul": mm_mod.matmul_cuda,
+            "stencil": st_mod.stencil_cuda,
+            "segment_rowmax": sr_mod.segment_rowmax_cuda,
+            "flash_attention": fa_mod.flash_attention_cuda,
+            "mamba_scan": ms_mod.mamba_scan_cuda}
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {"matmul": mm_mod.matmul_cuda.launches,
-            "stencil": st_mod.stencil_cuda.launches,
-            "segment_rowmax": sr_mod.segment_rowmax_cuda.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    mm_mod.matmul_cuda.launches = 0
-    st_mod.stencil_cuda.launches = 0
-    sr_mod.segment_rowmax_cuda.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0

@@ -51,3 +51,39 @@ def segment_rowmax(vals: torch.Tensor, seg: int = 1) -> torch.Tensor:
     """Per-row max of contiguous length-``seg`` segment sums (vals >= 0)."""
     rows, cols = vals.shape
     return vals.reshape(rows, cols // seg, seg).sum(2).amax(1)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention(q, k, v, *, scale=None, window: int = 0, causal: bool = True):
+    """q/k/v: (BH, S, d) — naive softmax attention (KV already repeated
+    for GQA), masked scores at -1e30."""
+    BH, S, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
+    pos = torch.arange(S, device=q.device)
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (pos[:, None] >= pos[None, :])
+    if window > 0:
+        ok = ok & (pos[:, None] - pos[None, :] < window)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", p, v)
+
+
+def mamba_scan(xs, dt, Bs, Cs, A):
+    """Sequential selective scan from a zero state. xs/dt: (B,T,di);
+    Bs/Cs: (B,T,n); A: (di,n). Returns (y (B,T,di) in xs's dtype, final
+    state (B,di,n) fp32)."""
+    B, T, di = xs.shape
+    n = A.shape[1]
+    h = torch.zeros((B, di, n), dtype=torch.float32, device=xs.device)
+    ys = []
+    for t in range(T):
+        x_t, dt_t, B_t, C_t = xs[:, t], dt[:, t], Bs[:, t], Cs[:, t]
+        dA = torch.exp(dt_t[:, :, None] * A)
+        h = dA * h + (dt_t * x_t)[:, :, None] * B_t[:, None, :]
+        ys.append((h * C_t[:, None, :]).sum(dim=2))
+    return torch.stack(ys, dim=1).to(xs.dtype), h

@@ -1,0 +1,258 @@
+"""Hymba [arXiv:2411.13676] — hybrid-head LM: parallel attention + Mamba.
+
+The port of ``repro.models.hymba``. Each layer runs a (sliding-window)
+attention head group and a Mamba (SSM) head group *in parallel* on the
+same input, normalizes each output, and averages them. Meta-tokens are
+omitted, as in the reference.
+
+The Mamba side keeps O(1) decode state (conv tail + SSM state), and the
+attention side uses a ring-buffer SWA cache. With ``use_kernel`` the
+prefill runs the hand-written flash-attention and selective-scan kernels
+(``repro_torch.kernels.ops``); decode stays on the plain recurrence.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import (
+    ParamDef,
+    Schema,
+    init_params,
+    layer,
+    normal_init,
+    ones_init,
+    param_count,
+    zeros_init,
+)
+from repro_torch.models.transformer import (
+    _cache_update,
+    _dtype,
+    _qkv,
+    _stack,
+    attention_block,
+    attention_schema,
+)
+
+SWA_WINDOW = 1024
+DT_RANK = 48
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.d_inner or 2 * cfg.d_model
+
+
+# ------------------------------------------------------------------- mamba
+def mamba_schema(cfg: ModelConfig) -> Schema:
+    d = cfg.d_model
+    di = d_inner(cfg)
+    n = cfg.ssm_state
+    return {
+        "w_in": ParamDef((d, 2 * di), ("embed", "ffn")),
+        "conv": ParamDef((cfg.conv_width, di), ("conv", "ffn"),
+                         normal_init(0.1)),
+        "w_bc": ParamDef((di, 2 * n), ("ffn", None)),
+        "w_dt": ParamDef((di, DT_RANK), ("ffn", None)),
+        "w_dt_out": ParamDef((DT_RANK, di), (None, "ffn")),
+        "dt_bias": ParamDef((di,), ("ffn",), zeros_init()),
+        "A_log": ParamDef((di, n), ("ffn", "state"), normal_init(0.1)),
+        "D": ParamDef((di,), ("ffn",), ones_init()),
+        "w_out": ParamDef((di, d), ("ffn", "embed")),
+    }
+
+
+def _causal_conv(x, kernel, conv_state=None):
+    """Depthwise causal conv1d. x: (B,S,di); kernel: (W,di).
+
+    conv_state: (B, W-1, di) tail of previous inputs (decode) or None.
+    Returns (y, new_conv_state).
+    """
+    W = kernel.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                     # (B, S+W-1, di)
+    y = xp[:, 0:x.shape[1], :] * kernel[0][None, None, :]
+    for i in range(1, W):
+        y = y + xp[:, i:i + x.shape[1], :] * kernel[i][None, None, :]
+    return y, xp[:, -(W - 1):, :]
+
+
+def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
+                use_kernel: bool = False):
+    """Selective SSM. x: (B,S,D). state: (B,di,n) or None.
+
+    Returns (out (B,S,D), new_state, new_conv_state). With use_kernel the
+    zero-state path runs the selective-scan kernel; decode (state given)
+    stays on the scan.
+    """
+    B, S, D = x.shape
+    dt_ = x.dtype
+    di = d_inner(cfg)
+    n = cfg.ssm_state
+    xz = x @ params["w_in"].to(dt_)
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    xs, conv_state = _causal_conv(xs, params["conv"].to(dt_), conv_state)
+    xs = F.silu(xs)
+    bc = xs @ params["w_bc"].to(dt_)
+    B_ssm, C_ssm = torch.chunk(bc, 2, dim=-1)            # (B,S,n)
+    dt_raw = (xs @ params["w_dt"].to(dt_)) @ params["w_dt_out"].to(dt_)
+    dt = F.softplus(
+        dt_raw.to(torch.float32) + params["dt_bias"].to(torch.float32)
+    )                                                   # (B,S,di)
+    A = -torch.exp(params["A_log"].to(torch.float32))   # (di,n)
+    if state is None:
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            y32, state = kops.mamba_scan(
+                xs.to(torch.float32), dt,
+                B_ssm.to(torch.float32), C_ssm.to(torch.float32), A,
+            )
+            y = y32.to(dt_) + xs * params["D"].to(dt_)
+            y = y * F.silu(z)
+            return y @ params["w_out"].to(dt_), state, conv_state
+        state = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
+
+    # Discretize inside the step (never a (B,S,di,n) tensor), as the
+    # reference's scan does; the scan is a Python loop over time.
+    xs32 = xs.to(torch.float32)
+    Bs = B_ssm.to(torch.float32)
+    Cs = C_ssm.to(torch.float32)
+    ys = []
+    for t in range(S):
+        dt_t, B_t, C_t = dt[:, t], Bs[:, t], Cs[:, t]
+        dA_t = torch.exp(dt_t[:, :, None] * A[None])            # (B,di,n)
+        dBx_t = dt_t[:, :, None] * B_t[:, None, :] * xs32[:, t, :, None]
+        state = dA_t * state + dBx_t
+        ys.append(torch.einsum("bdn,bn->bd", state, C_t))
+    y = torch.stack(ys, dim=1).to(dt_)                   # (B,S,di)
+    y = y + xs * params["D"].to(dt_)
+    y = y * F.silu(z)
+    return y @ params["w_out"].to(dt_), state, conv_state
+
+
+# ------------------------------------------------------------------- layer
+def block_schema(cfg: ModelConfig) -> Schema:
+    return {
+        "norm": layers.rmsnorm_schema(cfg.d_model),
+        "attn": attention_schema(cfg),
+        "attn_out_norm": layers.rmsnorm_schema(cfg.d_model),
+        "mamba": mamba_schema(cfg),
+        "mamba_out_norm": layers.rmsnorm_schema(cfg.d_model),
+        "ffn_norm": layers.rmsnorm_schema(cfg.d_model),
+        "mlp": layers.swiglu_schema(cfg.d_model, cfg.d_ff),
+    }
+
+
+def model_schema(cfg: ModelConfig) -> Schema:
+    return {
+        "embed": layers.embedding_schema(cfg.padded_vocab, cfg.d_model),
+        "layers": _stack(block_schema(cfg), cfg.n_layers),
+        "final_norm": layers.rmsnorm_schema(cfg.d_model),
+        "lm_head": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                            normal_init(0.02)),
+    }
+
+
+class HymbaLM(nn.Module):
+    """The hybrid-head LM; parameters are passed to every call, as in the
+    reference."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.sliding_window == 0:
+            cfg = dataclasses.replace(cfg, sliding_window=SWA_WINDOW)
+        self.cfg = cfg
+        self.schema = model_schema(cfg)
+        self.n_params = param_count(self.schema)
+
+    def init(self, generator: torch.Generator, device="cuda") -> dict:
+        return init_params(self.schema, generator, device)
+
+    # ------------------------------------------------------------- forward
+    @torch.no_grad()
+    def hidden_states(self, params, tokens, *, use_kernel=False):
+        cfg = self.cfg
+        x = layers.embed(params["embed"], tokens, _dtype(cfg))
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
+        for i in range(cfg.n_layers):
+            p = layer(params["layers"], i)
+            h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
+            a = attention_block(p["attn"], h, cfg, positions, use_kernel)
+            m, _, _ = mamba_mixer(p["mamba"], h, cfg, use_kernel=use_kernel)
+            a = layers.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
+            m = layers.rmsnorm(p["mamba_out_norm"], m, cfg.norm_eps)
+            x = x + 0.5 * (a + m)
+            h = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+            x = x + layers.swiglu(p["mlp"], h)
+        return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
+
+    def logits(self, params, tokens, *, use_kernel=False):
+        x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel)
+        return layers.unembed({"table": params["lm_head"]}, x), aux
+
+    def last_logits(self, params, tokens, *, use_kernel=False):
+        x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel)
+        return layers.unembed({"table": params["lm_head"]}, x[:, -1:])
+
+    # -------------------------------------------------------------- decode
+    def cache_spec(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        C = min(max_len, cfg.sliding_window)
+        L, hd, di = cfg.n_layers, cfg.resolved_head_dim, d_inner(cfg)
+        dt = _dtype(cfg)
+        return {
+            "k": ((L, batch, C, cfg.n_kv_heads, hd), dt),
+            "v": ((L, batch, C, cfg.n_kv_heads, hd), dt),
+            "ssm": ((L, batch, di, cfg.ssm_state), torch.float32),
+            "conv": ((L, batch, cfg.conv_width - 1, di), dt),
+        }
+
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        return {k: torch.zeros(shape, dtype=dt, device=device)
+                for k, (shape, dt) in self.cache_spec(batch, max_len).items()}
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, pos: int, tokens, *, use_kernel=False):
+        """One decode step; the cache is updated in place and returned."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        x = layers.embed(params["embed"], tokens, dt)
+        positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+        slot = pos % cache["k"].shape[2]
+        B = x.shape[0]
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
+        for i in range(cfg.n_layers):
+            p = layer(params["layers"], i)
+            c = layer(cache, i)
+            h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
+            # --- attention side (ring-buffer SWA cache)
+            ap = p["attn"]
+            q, k, v = _qkv(ap, h, cfg, positions)
+            k_c = _cache_update(c["k"], k[:, 0], slot)
+            v_c = _cache_update(c["v"], v[:, 0], slot)
+            a = layers.decode_attention(q, k_c, v_c, pos,
+                                        window=cfg.sliding_window)
+            a = a.reshape(B, 1, H * hd) @ ap["wo"].to(dt)
+            # --- mamba side
+            m, ssm, conv = mamba_mixer(p["mamba"], h, cfg, state=c["ssm"],
+                                       conv_state=c["conv"])
+            c["ssm"].copy_(ssm)
+            c["conv"].copy_(conv)
+            a = layers.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
+            m = layers.rmsnorm(p["mamba_out_norm"], m, cfg.norm_eps)
+            x = x + 0.5 * (a + m)
+            hh = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+            x = x + layers.swiglu(p["mlp"], hh)
+        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = layers.unembed({"table": params["lm_head"]}, x)
+        return logits, cache

@@ -1,0 +1,124 @@
+"""Parameter schema system: one source of truth for shapes and init.
+
+The port of ``repro.models.params``. Every model defines a *schema* — a
+nested dict whose leaves are :class:`ParamDef` (shape + logical axes +
+initializer). From it come ``init_params`` (a nested dict of tensors,
+drawn from an explicit ``torch.Generator``) and ``param_count``.
+
+``params_from_numpy`` carries the JAX package's parameter tree across,
+key for key (as numpy arrays), so the port and the reference can be run
+on the same weights. ``param_specs`` and ``ShardingRules`` come with the
+multi-card substrate.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+# (generator, shape, dtype, device) -> tensor
+Initializer = Callable[[torch.Generator, tuple, torch.dtype, Any], torch.Tensor]
+
+
+def _randn(gen, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def normal_init(stddev: float = 0.02) -> Initializer:
+    def fn(gen, shape, dtype, device):
+        return (stddev * _randn(gen, shape, device)).to(dtype)
+
+    return fn
+
+
+def scaled_init(fan_in_axis: int = 0) -> Initializer:
+    def fn(gen, shape, dtype, device):
+        fan_in = shape[fan_in_axis]
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+        return (std * _randn(gen, shape, device)).to(dtype)
+
+    return fn
+
+
+def zeros_init() -> Initializer:
+    def fn(gen, shape, dtype, device):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return fn
+
+
+def ones_init() -> Initializer:
+    def fn(gen, shape, dtype, device):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Leaf of a model schema."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: Initializer = dataclasses.field(default_factory=scaled_init)
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+Schema = dict  # nested dict[str, Schema | ParamDef]
+
+
+def _walk(schema: Schema, fn: Callable[[ParamDef, tuple[str, ...]], Any],
+          path: tuple[str, ...] = ()) -> dict:
+    out = {}
+    for name, node in schema.items():
+        if isinstance(node, ParamDef):
+            out[name] = fn(node, path + (name,))
+        elif isinstance(node, dict):
+            out[name] = _walk(node, fn, path + (name,))
+        else:
+            raise TypeError(f"bad schema node at {path + (name,)}: {node!r}")
+    return out
+
+
+def init_params(schema: Schema, generator: torch.Generator, device="cuda") -> dict:
+    """Materialize the schema into tensors on ``device``, leaf by leaf in
+    schema order from ``generator`` (which must live on ``device``'s
+    type). A seed gives the same weights on every run, but not the JAX
+    package's: ``jax.random`` and ``torch.Generator`` differ; carry JAX
+    weights across with :func:`params_from_numpy`."""
+    return _walk(schema, lambda d, p: d.init(generator, d.shape, d.dtype, device))
+
+
+def param_count(schema: Schema) -> int:
+    total = 0
+
+    def add(d: ParamDef, path):
+        nonlocal total
+        total += math.prod(d.shape)
+        return 0
+
+    _walk(schema, add)
+    return total
+
+
+def params_from_numpy(tree, device="cuda") -> dict:
+    """The JAX parameter pytree (leaves as numpy arrays, e.g. through
+    ``jax.tree.map(np.asarray, params)``) as the port's tensors, key for
+    key and dtype for dtype; the stacked ``layers`` axis is kept."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    # A copy: numpy views of JAX arrays are read-only.
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def layer(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}

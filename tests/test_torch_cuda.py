@@ -15,6 +15,8 @@ import torch
 from repro_torch import apps
 from repro_torch.apps import validate
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
@@ -138,3 +140,93 @@ def _simulable(model, grid) -> bool:
     except ValueError:
         return False
     return True
+
+
+# ---------------------------------------------------------- flash attention
+@pytest.mark.parametrize("B,S,H,Kv,d,window,causal", [
+    (1, 64, 1, 1, 64, 0, True),
+    (2, 200, 4, 2, 64, 0, True),          # ragged S, GQA
+    (4, 2048, 25, 5, 64, 1024, True),     # hymba-1.5b prefill
+    (4, 2048, 9, 3, 64, 0, True),         # smollm-135m prefill
+    (1, 300, 6, 3, 80, 100, True),        # danube's head dim, window
+    (2, 129, 4, 1, 128, 0, True),         # qwen2's head dim
+    (1, 77, 2, 2, 16, 0, False),          # not causal
+    (1, 130, 2, 1, 32, 40, False),        # not causal, window
+    (3, 5, 3, 3, 48, 2, True),            # shorter than one tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, B, S, H, Kv, d, window, causal,
+                                              dtype):
+    gen = torch.Generator(device=card).manual_seed(S)
+    q = torch.randn((B, S, H, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((B, S, Kv, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((B, S, Kv, d), generator=gen, device=card).to(dtype)
+    out = fa_mod.flash_attention_cuda(q, k, v, window=window, causal=causal)
+    expect = ops.flash_attention_plain(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (B, S, H, d)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_kernel_reads_strided_layout(card):
+    """A transposed (non-contiguous) q and a custom scale."""
+    q = torch.randn((2, 4, 96, 64), device=card).transpose(1, 2)
+    k = torch.randn((2, 96, 2, 64), device=card)
+    v = torch.randn((2, 96, 2, 64), device=card)
+    out = ops.flash_attention(q, k, v, scale=0.2, window=30)
+    expect = ops.flash_attention_plain(q, k, v, scale=0.2, window=30)
+    torch.testing.assert_close(out, expect, **TOL[torch.float32])
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
+    q = torch.randn((1, 8, 3, 64), device=card)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_mod.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="head dim"):
+        fa_mod.flash_attention_cuda(q[..., :40], q[..., :40], q[..., :40])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_mod.flash_attention_cuda(q.half(), q.half(), q.half())
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+# --------------------------------------------------------------- mamba scan
+@pytest.mark.parametrize("B,T,di,n", [(4, 2048, 3200, 16), (2, 100, 24, 8),
+                                      (1, 33, 7, 4), (3, 64, 130, 32)])
+def test_mamba_scan_kernel_matches_plain(card, B, T, di, n):
+    gen = torch.Generator(device=card).manual_seed(T)
+    xs = 0.5 * torch.randn((B, T, di), generator=gen, device=card)
+    dt = 0.2 * torch.nn.functional.softplus(
+        torch.randn((B, T, di), generator=gen, device=card))
+    Bs = 0.5 * torch.randn((B, T, n), generator=gen, device=card)
+    Cs = 0.5 * torch.randn((B, T, n), generator=gen, device=card)
+    A = -torch.exp(0.3 * torch.randn((di, n), generator=gen, device=card))
+    y, s = ms_mod.mamba_scan_cuda(xs, dt, Bs, Cs, A)
+    y_ref, s_ref = ref.mamba_scan(xs, dt, Bs, Cs, A)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
+    torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
+    assert ops.launch_counts()["mamba_scan"] == 1
+
+
+# ------------------------------------------------------------------ models
+@pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-1.8b", "hymba-1.5b"])
+def test_reduced_prefill_through_the_kernels(card, arch):
+    """A reduced model's prefill with the kernels against the plain one
+    (fp32; hymba at the mixer tolerance of tests/test_kernels.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build
+
+    model = build(get_config(arch).reduced())
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 150), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    got = make_prefill_step(model)(params, toks)
+    counts = ops.launch_counts()
+    want = make_prefill_step(model, use_kernel=False)(params, toks)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-2, atol=5e-2) if arch == "hymba-1.5b" else dict(rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got, want, **tol)
+    assert counts["flash_attention"] == model.cfg.n_layers
+    assert counts["mamba_scan"] == (model.cfg.n_layers if arch == "hymba-1.5b" else 0)

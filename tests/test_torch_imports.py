@@ -25,17 +25,31 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
+for needed in sys.argv[2:]:
+    assert needed in names, needed
 print("imported", len(names))
 """
+
+# The LM serving slice: every module must be among those imported.
+LM_MODULES = [
+    "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
+    "repro_torch.models", "repro_torch.models.config",
+    "repro_torch.models.params", "repro_torch.models.layers",
+    "repro_torch.models.transformer", "repro_torch.models.hymba",
+    "repro_torch.models.registry", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.mamba_scan", "repro_torch.launch.steps",
+    "repro_torch.launch.serve", "repro_torch.serving.scheduler",
+    "repro_torch.serving.stats",
+]
 
 
 def test_port_and_chip_smoke_import_without_jax_or_repro():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
     proc = subprocess.run(
-        [sys.executable, "-c", SNIPPET, str(REPO / "chip_smoke.py")],
+        [sys.executable, "-c", SNIPPET, str(REPO / "chip_smoke.py"), *LM_MODULES],
         capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 25, proc.stdout
+    assert count >= 60, proc.stdout

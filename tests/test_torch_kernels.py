@@ -17,6 +17,8 @@ from repro.kernels.matmul import matmul_pallas
 from repro.kernels.segment_reduce import segment_rowmax_pallas
 from repro.kernels.stencil import stencil_pallas
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
@@ -27,7 +29,8 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-NO_LAUNCHES = {"matmul": 0, "stencil": 0, "segment_rowmax": 0}
+NO_LAUNCHES = {"matmul": 0, "stencil": 0, "segment_rowmax": 0,
+               "flash_attention": 0, "mamba_scan": 0}
 
 
 def _normal(seed, shape):
@@ -163,3 +166,126 @@ def test_plain_matmul_keeps_fp32_out_of_tf32():
     ref.matmul(torch.ones(2, 2), torch.ones(2, 2))
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+# ---------------------------------------------------------- flash attention
+def _qkv(seed, shape):
+    return [_normal(seed + i, shape) for i in range(3)]
+
+
+@pytest.mark.parametrize("s,d", [(128, 64), (256, 64), (256, 128)])
+@pytest.mark.parametrize("window", [0, 64])
+def test_plain_flash_attention_matches_pallas(s, d, window):
+    """The shapes of tests/test_kernels.py::test_flash_attention_shapes."""
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    q, k, v = _qkv(20, (4, s, d))
+    expect = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    window=window, bq=64, bk=64, interpret=True)
+    out = ref.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    _close(out, expect, "float32")
+    _close(out, jref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     window=window), "float32")
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (False, 16), (True, 1)])
+def test_plain_flash_attention_masks_match_jax_ref(causal, window):
+    q, k, v = _qkv(23, (3, 40, 16))
+    out = ref.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window,
+                              causal=causal, scale=0.3)
+    _close(out, jref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     window=window, causal=causal, scale=0.3),
+           "float32")
+
+
+def test_plain_flash_attention_bf16_matches_pallas():
+    q, k, v = _qkv(26, (2, 128, 64))
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    expect = flash_attention_pallas(jq, jk, jv, bq=64, bk=64, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out = ref.flash_attention(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    _close(out, expect, "bfloat16")
+
+
+@pytest.mark.parametrize("H,Kv,window", [(4, 2, 0), (4, 4, 32), (6, 3, 48)])
+def test_ops_flash_attention_gqa_layout_matches_jax_ops(H, Kv, window):
+    """The model-layout wrapper (GQA repeat, (B,S,H,hd) <-> (BH,S,hd))
+    against repro.kernels.ops.flash_attention (Pallas in interpret mode)."""
+    from repro.kernels import ops as jops
+
+    B, S, hd = 2, 128, 32
+    q = _normal(30, (B, S, H, hd))
+    k, v = _normal(31, (B, S, Kv, hd)), _normal(32, (B, S, Kv, hd))
+    expect = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  window=window)
+    out = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    assert out.shape == (B, S, H, hd)
+    _close(out, expect, "float32")
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_ops_flash_attention_any_length_is_naive_attention():
+    """Serving prompts are not multiples of the tile: any S, against the
+    JAX package's naive attention."""
+    from repro.models import layers as jlayers
+
+    q = _normal(33, (1, 37, 6, 16))
+    k, v = _normal(34, (1, 37, 2, 16)), _normal(35, (1, 37, 2, 16))
+    out = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), window=20)
+    _close(out, jlayers.naive_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), window=20), "float32")
+
+
+# --------------------------------------------------------------- mamba scan
+def _mamba_inputs(B, t, di, n, seed=40):
+    rng = np.random.default_rng(seed)
+    xs = (0.5 * rng.normal(size=(B, t, di))).astype(np.float32)
+    dt = (0.2 * np.log1p(np.exp(rng.normal(size=(B, t, di))))).astype(np.float32)
+    Bs = (0.5 * rng.normal(size=(B, t, n))).astype(np.float32)
+    Cs = (0.5 * rng.normal(size=(B, t, n))).astype(np.float32)
+    A = (-np.exp(0.3 * rng.normal(size=(di, n)))).astype(np.float32)
+    return xs, dt, Bs, Cs, A
+
+
+@pytest.mark.parametrize("t,di,n,bt", [(64, 16, 8, 32), (128, 24, 8, 64),
+                                       (128, 32, 16, 128)])
+def test_plain_mamba_scan_matches_pallas(t, di, n, bt):
+    """The shapes of tests/test_kernels.py::test_mamba_scan_shapes."""
+    from repro.kernels.mamba_scan import mamba_scan_pallas
+
+    args = _mamba_inputs(2, t, di, n)
+    jargs = [jnp.asarray(a) for a in args]
+    y_p, s_p = mamba_scan_pallas(*jargs, bt=bt, interpret=True)
+    y_r, s_r = jref.mamba_scan(*jargs)
+    y, s = ops.mamba_scan(*map(torch.from_numpy, args))
+    assert y.shape == (2, t, di) and s.shape == (2, di, n) and s.dtype == torch.float32
+    for out, expect in ((y, y_p), (s, s_p), (y, y_r), (s, s_r)):
+        _close(out, expect, "float32")
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_ops_mamba_scan_matches_jax_ops():
+    from repro.kernels import ops as jops
+
+    args = _mamba_inputs(3, 64, 20, 4, seed=41)
+    y_j, s_j = jops.mamba_scan(*map(jnp.asarray, args))
+    y, s = ops.mamba_scan(*map(torch.from_numpy, args))
+    _close(y, y_j, "float32")
+    _close(s, s_j, "float32")
+
+
+def test_lm_kernel_wrappers_refuse_non_cuda_tensors():
+    q = torch.ones(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    xs, Bs, A = torch.ones(1, 4, 8), torch.ones(1, 4, 4), torch.ones(8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ms_mod.mamba_scan_cuda(xs, xs, Bs, Bs, A)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.mamba_scan(*(x.to("meta") for x in (xs, xs, Bs, Bs, A)))
+    assert ops.launch_counts() == NO_LAUNCHES

@@ -1,0 +1,257 @@
+"""The port's LM stack on the CPU against the JAX package's.
+
+Reduced configs in float32; the JAX parameters are carried across by
+``params_from_numpy`` and the inputs drawn from seeded numpy, so both
+packages see the same weights and tokens. Tolerances: forward and last
+logits 1e-4 (fp32; the two frameworks sum in other orders), decode
+against the forward 2e-3 (``tests/test_models.py::
+test_decode_matches_forward``). ``use_kernel=True`` runs the kernels'
+plain versions here and is held to the JAX package's ``use_pallas=True``
+(the Pallas kernels in interpret mode).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.models import build as jax_build
+from repro.models import layers as jlayers
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import ops
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import build, layers, params_from_numpy
+
+FWD = dict(rtol=1e-4, atol=1e-4)
+DECODE = dict(rtol=2e-3, atol=2e-3)
+# dense (smollm), QKV bias (qwen2), sliding window (danube), stub frontend
+# with codebooks (musicgen), hybrid (hymba).
+DENSE = ["smollm-135m", "qwen2-7b", "h2o-danube-1.8b", "musicgen-medium"]
+
+
+def _normal(seed, shape, scale=1.0):
+    return (scale * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _close(out, expect, tol):
+    np.testing.assert_allclose(out.detach().to(torch.float32).numpy(),
+                               np.asarray(expect, np.float32), **tol)
+
+
+_PAIRS = {}
+
+
+def _pair(arch):
+    """(JAX model, JAX params, port model, port params) for the reduced
+    fp32 config; qwen2's zero-initialized QKV biases get random values in
+    both, so that the bias path is exercised."""
+    if arch not in _PAIRS:
+        jcfg = dataclasses.replace(jax_config(arch).reduced(), dtype="float32")
+        tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        jm, tm = jax_build(jcfg), build(tcfg)
+        tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+        for stack in ("dense_layers", "layers"):
+            attn = tree.get(stack, {}).get("attn", {})
+            for i, name in enumerate(("bq", "bk", "bv")):
+                if name in attn:
+                    attn[name] = _normal(10 + i, attn[name].shape, 0.1)
+        jp = jax.tree.map(jnp.asarray, tree)
+        _PAIRS[arch] = (jm, jp, tm, params_from_numpy(tree, "cpu"))
+    return _PAIRS[arch]
+
+
+def _inputs(cfg, B, S, seed=0):
+    if cfg.stub_frontend:
+        x = _normal(seed, (B, S, cfg.d_model))
+        return jnp.asarray(x), _t(x)
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S))
+    return jnp.asarray(ids, jnp.int32), _t(ids).long()
+
+
+# ------------------------------------------------------------------- layers
+def test_rmsnorm_matches_jax():
+    x, s = _normal(0, (2, 5, 64)), _normal(1, (64,))
+    _close(layers.rmsnorm({"scale": _t(s)}, _t(x), 1e-5),
+           jlayers.rmsnorm({"scale": jnp.asarray(s)}, jnp.asarray(x), 1e-5), FWD)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 1000000.0])
+def test_rope_matches_jax(theta):
+    x = _normal(2, (2, 64, 3, 16))
+    pos = np.arange(64)[None, :]
+    _close(layers.apply_rope(_t(x), _t(pos), theta),
+           jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta), FWD)
+    _close(layers.rope_freqs(16, theta), jlayers.rope_freqs(16, theta), FWD)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("H,Kv", [(4, 4), (4, 2), (6, 3)])
+def test_naive_and_chunked_attention_match_jax(window, H, Kv):
+    B, S, hd = 2, 64, 16
+    q, k, v = (_normal(i, (B, S, h, hd)) for i, h in ((3, H), (4, Kv), (5, Kv)))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    expect = jlayers.naive_attention(jq, jk, jv, window=window)
+    _close(layers.naive_attention(_t(q), _t(k), _t(v), window=window), expect, FWD)
+    chunked = layers.chunked_attention(_t(q), _t(k), _t(v), window=window,
+                                       q_chunk=16, kv_chunk=32)
+    _close(chunked, jlayers.chunked_attention(jq, jk, jv, window=window,
+                                              q_chunk=16, kv_chunk=32), FWD)
+    _close(chunked, expect, dict(rtol=3e-5, atol=3e-5))
+
+
+def test_attention_routes_long_sequences_to_chunks(monkeypatch):
+    """Above CHUNK_THRESHOLD the plain path is the chunked one."""
+    monkeypatch.setattr(layers, "CHUNK_THRESHOLD", 32)
+    monkeypatch.setattr(layers, "Q_CHUNK", 16)
+    monkeypatch.setattr(layers, "KV_CHUNK", 16)
+    calls = []
+    real = layers.chunked_attention
+    monkeypatch.setattr(layers, "chunked_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    q, k, v = (_t(_normal(i, (1, 64, 2, 16))) for i in range(3))
+    out = layers.attention(q, k, v, window=8)
+    assert calls == [1]
+    _close(out, jlayers.naive_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                        window=8), dict(rtol=3e-5, atol=3e-5))
+
+
+@pytest.mark.parametrize("window,pos", [(0, 0), (0, 9), (16, 5), (16, 15),
+                                        (16, 16), (16, 40)])
+def test_decode_attention_matches_jax(window, pos):
+    B, C, H, Kv, hd = 2, 16, 4, 2, 16
+    q = _normal(6, (B, 1, H, hd))
+    kc, vc = _normal(7, (B, C, Kv, hd)), _normal(8, (B, C, Kv, hd))
+    out = layers.decode_attention(_t(q), _t(kc), _t(vc), pos, window=window)
+    expect = jlayers.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                      jnp.asarray(vc), jnp.int32(pos), window=window)
+    _close(out, expect, FWD)
+
+
+def test_swiglu_and_unembed_match_jax():
+    x = _normal(9, (2, 3, 32))
+    p = {"w_gate": _normal(10, (32, 48)), "w_up": _normal(11, (32, 48)),
+         "w_down": _normal(12, (48, 32))}
+    _close(layers.swiglu({k: _t(v) for k, v in p.items()}, _t(x)),
+           jlayers.swiglu({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x)),
+           FWD)
+    table = _normal(13, (40, 32))
+    _close(layers.unembed({"table": _t(table)}, _t(x)),
+           jlayers.unembed({"table": jnp.asarray(table)}, jnp.asarray(x)), FWD)
+
+
+# ------------------------------------------------------------------- models
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-7b", "h2o-danube-1.8b",
+                                  "granite-3-2b", "musicgen-medium",
+                                  "pixtral-12b", "hymba-1.5b"])
+def test_param_count_matches_jax_at_full_width(arch):
+    assert build(get_config(arch)).n_params == jax_build(jax_config(arch)).n_params
+
+
+@pytest.mark.parametrize("arch,S", [("smollm-135m", 32), ("qwen2-7b", 32),
+                                    ("h2o-danube-1.8b", 96), ("musicgen-medium", 16)])
+def test_decoder_logits_match_jax(arch, S):
+    jm, jp, tm, tp = _pair(arch)
+    jin, tin = _inputs(tm.cfg, 2, S)
+    jl, _ = jm.logits(jp, jin, remat=False)
+    tl, _ = tm.logits(tp, tin)
+    assert tl.shape == jl.shape
+    _close(tl, jl, FWD)
+    _close(tm.last_logits(tp, tin), jm.last_logits(jp, jin, remat=False), FWD)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_hymba_logits_match_jax(use_kernel):
+    """S = 128 exceeds the reduced window (64), so the SWA mask bites;
+    use_kernel against use_pallas runs flash and mamba in interpret mode
+    on the JAX side and their plain versions here."""
+    jm, jp, tm, tp = _pair("hymba-1.5b")
+    jin, tin = _inputs(tm.cfg, 2, 128)
+    jl, _ = jm.logits(jp, jin, use_pallas=use_kernel, remat=False)
+    tl, _ = tm.logits(tp, tin, use_kernel=use_kernel)
+    _close(tl, jl, FWD)
+    assert ops.launch_counts()["flash_attention"] == 0   # plain on the CPU
+    step = make_prefill_step(tm, use_kernel=use_kernel)
+    _close(step(tp, tin), jm.last_logits(jp, jin, use_pallas=use_kernel,
+                                         remat=False), FWD)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-7b", "h2o-danube-1.8b",
+                                  "hymba-1.5b"])
+def test_decode_step_matches_jax(arch):
+    jm, jp, tm, tp = _pair(arch)
+    B, S = 2, 6
+    jin, tin = _inputs(tm.cfg, B, S, seed=1)
+    jdecode = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(B, 16)
+    tcache = tm.init_cache(B, 16, device="cpu")
+    step = make_serve_step(tm)
+    for t in range(S):
+        jl, jcache = jdecode(jp, jcache, jnp.int32(t), jin[:, t:t + 1])
+        tl, tcache = step(tp, tcache, t, tin[:, t:t + 1])
+        _close(tl, jl, FWD)
+    for name, buf in tcache.items():
+        _close(buf, jcache[name], FWD)
+
+
+@pytest.mark.parametrize("arch,S", [("smollm-135m", 12), ("qwen2-7b", 12),
+                                    ("h2o-danube-1.8b", 80), ("hymba-1.5b", 80)])
+def test_decode_matches_forward(arch, S):
+    """Teacher-forced decode reproduces the forward logits; at S = 80 the
+    SWA configs' ring buffers (capacity 64) wrap."""
+    _, _, tm, tp = _pair(arch)
+    _, tin = _inputs(tm.cfg, 1, S, seed=2)
+    full, _ = tm.logits(tp, tin, use_kernel=True)
+    cache = tm.init_cache(1, S, device="cpu")
+    outs = []
+    for t in range(S):
+        logits, cache = tm.decode_step(tp, cache, t, tin[:, t:t + 1])
+        outs.append(logits[:, 0])
+    _close(torch.stack(outs, dim=1), full.numpy(), DECODE)
+
+
+def test_hymba_mixer_kernel_path_matches_scan():
+    """The mixer's kernel path (zero state) against its scan at the
+    tolerance of tests/test_kernels.py::test_mamba_scan_matches_model_mixer,
+    and the final states likewise."""
+    from repro_torch.models.hymba import mamba_mixer
+
+    _, _, tm, tp = _pair("hymba-1.5b")
+    p = {k: v[0] for k, v in tp["layers"]["mamba"].items()}
+    x = _t(_normal(14, (2, 64, tm.cfg.d_model)))
+    scan_out, scan_state, conv = mamba_mixer(p, x, tm.cfg)
+    kern_out, kern_state, conv_k = mamba_mixer(p, x, tm.cfg, use_kernel=True)
+    torch.testing.assert_close(kern_out, scan_out, rtol=1e-2, atol=5e-2)
+    torch.testing.assert_close(kern_state, scan_state, rtol=1e-2, atol=5e-2)
+    torch.testing.assert_close(conv_k, conv, rtol=0, atol=0)
+
+
+def test_init_params_is_seeded_and_shaped():
+    tm = build(get_config("hymba-1.5b").reduced())
+    a = tm.init(torch.Generator().manual_seed(3), device="cpu")
+    b = tm.init(torch.Generator().manual_seed(3), device="cpu")
+    jshapes = jax.tree.map(lambda s: s.shape, jax_build(
+        jax_config("hymba-1.5b").reduced()).abstract())
+    assert jax.tree.map(lambda t: tuple(t.shape), a) == jshapes
+    assert all(torch.equal(x, y) for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+    assert torch.all(a["layers"]["mamba"]["D"] == 1)
+    assert tm.cfg.sliding_window == 64
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-moe-a2.7b",
+                                  "rwkv6-3b"])
+def test_later_slices_raise(arch):
+    with pytest.raises(NotImplementedError, match="slice"):
+        build(get_config(arch).reduced())
+
+
+def test_configs_are_the_jax_packages():
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            jax_config(arch))
