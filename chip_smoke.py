@@ -48,10 +48,25 @@ NVIDIA H100:
    (batch 4, prompt 32, gen 16) and a 4-slot ``ContinuousBatcher``
    answering 8 requests of prompts 16-128; then smollm-135m's prefill
    (no window) with the kernels against its plain prefill (fp32, 2e-3);
-8. prints one JSON ``kernels`` line (matmul and stencil launches from the
+8. holds wkv6 against its plain version (fp32, rtol=atol=1e-4) at the
+   rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64), at a ragged T
+   and at head sizes 32 and 16, and times it at the prefill shape;
+9. drives RWKV-6 serving at rwkv6-3b's full width (32 layers, d_model
+   2560, d_ff 8960, vocabulary 65536; 3073313280 parameters drawn from a
+   seed, fp32 on the card, after hymba's are freed): the prefill step with
+   the wkv6 kernel (B=4, prompt 2048), counters set to 0 just before and
+   read just after (32 launches); in fp32 its last logits against the
+   plain prefill (the per-step scan) within a max |diff| of 1e-3, the bf16
+   difference reported, and the median bf16 prefill wall time with and
+   without the kernel; a 256-token prompt teacher-forced through
+   ``decode_step`` (the scan from the carried state) against the kernel
+   prefill's last logits (fp32, 2e-3); the serving CLI (batch 4, prompt
+   32, gen 16) and a 4-slot ``ContinuousBatcher`` answering 8 requests;
+10. prints one JSON ``kernels`` line (matmul and stencil launches from the
    execute path, segment_rowmax launches from the tune path,
-   flash_attention and mamba_scan launches from the hymba prefill), the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+   flash_attention and mamba_scan launches from the hymba prefill, wkv6
+   launches from the rwkv6-3b prefill), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA card,
 or without the rest of the repository beside it, it fails.
@@ -101,6 +116,8 @@ KERNELS = {
                         "replaces": "src/repro/kernels/flash_attention.py:79"},
     "mamba_scan": {"source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "replaces": "src/repro/kernels/mamba_scan.py:58"},
+    "wkv6": {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
+             "replaces": "src/repro/kernels/wkv6.py:59"},
 }
 # The LM serving path: hymba-1.5b's prefill shape and the checks' limits.
 LM_ARCH = "hymba-1.5b"
@@ -109,6 +126,13 @@ PREFILL_TOL = dict(rtol=1e-2, atol=5e-2)   # tests/test_kernels.py's mixer toler
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_models.py's decode check
 DECODE_PROMPT = 256
 DENSE_ARCH = "smollm-135m"
+LM_KERNELS = ("flash_attention", "mamba_scan", "wkv6")
+# RWKV-6 serving: rwkv6-3b's prefill shape (40 heads of 64) and the bound,
+# stated before the run, on the fp32 kernel prefill's last logits against
+# the plain prefill's: max |diff| <= 1e-3.
+RWKV_ARCH = "rwkv6-3b"
+RWKV_HEADS, RWKV_HEAD = 40, 64
+RWKV_PREFILL_TOL = dict(rtol=0.0, atol=1e-3)
 
 
 def fail(msg: str) -> None:
@@ -629,6 +653,60 @@ def lm_kernel_phase() -> dict:
     }
 
 
+def _wkv6_inputs(gen, B: int, T: int, H: int, N: int):
+    """Drawn as tests/test_kernels.py::test_wkv6_shapes draws them: r, k, v
+    at 0.5, w = sigmoid(.)*0.5+0.4, u at 0.1; the model layout."""
+    import torch
+
+    r, k, v = (0.5 * torch.randn((B, T, H, N), generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen, device="cuda")) * 0.5 + 0.4
+    u = 0.1 * torch.randn((H, N), generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def wkv6_kernel_phase() -> dict:
+    """wkv6 against its plain version at the rwkv6-3b prefill shape (timed,
+    with its bound), a ragged T and the smaller head sizes."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as wkv_mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    shapes = [(LM_BATCH, LM_PROMPT, RWKV_HEADS, RWKV_HEAD), (2, 1000, RWKV_HEADS, RWKV_HEAD),
+              (3, 333, 8, 32), (2, 512, 8, 16)]
+    err_all, row = 0.0, None
+    for B, T, H, N in shapes:
+        r, k, v, w, u = _wkv6_inputs(gen, B, T, H, N)
+        y, s = wkv_mod.wkv6_cuda(r, k, v, w, u)
+        y_ref, s_ref = ops.wkv6_plain(r, k, v, w, u)
+        torch.cuda.synchronize()
+        tag = f"wkv6 float32 B={B} T={T} H={H} N={N}"
+        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+            fail(f"{tag}: non-finite output")
+        err = max(check_close(tag + " y", y, y_ref, "float32"),
+                  check_close(tag + " state", s, s_ref, "float32"))
+        err_all = max(err_all, err)
+        print(f"parity {tag}: max_abs_err={err:.3e} (max |y| {float(y_ref.abs().max()):.3e})")
+        if (B, T) != (LM_BATCH, LM_PROMPT):
+            continue
+        ms = time_ms(lambda: wkv_mod.wkv6_cuda(r, k, v, w, u), reps=50)
+        plain = time_ms(lambda: ops.wkv6_plain(r, k, v, w, u), reps=3, warmup=1)
+        # Bytes: r, k, v, w and u read once, y and the state written once.
+        # Operations: 5*N^2 per (batch, head, step), the least the
+        # recurrence needs (r.S 2N^2; decay, outer product and sum of the
+        # state update 3N^2; the bonus term is O(N)).
+        nbytes = 4.0 * (5 * B * T * H * N + H * N + B * H * N * N)
+        bnd, by = bound_ms(5.0 * N * N * B * H * T, nbytes, "float32")
+        print(f"time   {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}); no single PyTorch call computes the recurrence")
+        row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+               "bound_by": by, "shape": [B, T, H, N], "dtype": "float32"}
+    return {"wkv6": {**row, "max_abs_err": err_all}}
+
+
 def _full(arch: str, dtype: str):
     from repro_torch.configs import get_config
     from repro_torch.models import build
@@ -675,45 +753,49 @@ def _max_diff(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def lm_prefill_phase() -> tuple[dict, dict]:
-    """The LM serving path's prefill at hymba-1.5b's full width. Returns
-    the main path's launch counts and the numbers for the report."""
+def lm_prefill_phase(arch: str, kernels: tuple[str, ...], tol: dict,
+                     seed: int) -> tuple[dict, dict]:
+    """An LM serving path's prefill at ``arch``'s full width: one counted
+    bf16 prefill (each of ``kernels`` launched once per layer, the other
+    LM kernels never), the fp32 kernel prefill against the plain one
+    within ``tol``, and the bf16 wall time with and without the kernels.
+    Returns the counts and the state for decode and serving."""
     import torch
 
     from repro_torch.launch.steps import make_prefill_step
 
-    model, model32 = _full(LM_ARCH, "bfloat16"), _full(LM_ARCH, "float32")
+    model, model32 = _full(arch, "bfloat16"), _full(arch, "float32")
     cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    print(f"{LM_ARCH}: {model.n_params} parameters (fp32 on the card, "
+    print(f"{arch}: {model.n_params} parameters (fp32 on the card, "
           f"{time.perf_counter() - t0:.2f} s to draw), {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, window "
-          f"{cfg.sliding_window}, d_inner {cfg.d_inner}, state {cfg.ssm_state}")
-    toks = _tokens(cfg, LM_BATCH, LM_PROMPT, seed=1)
-    L = cfg.n_layers
-    expect = {"flash_attention": L, "mamba_scan": L}
-    none = {"flash_attention": 0, "mamba_scan": 0}
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, window {cfg.sliding_window}, "
+          f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, vocabulary {cfg.vocab_size}")
+    toks = _tokens(cfg, LM_BATCH, LM_PROMPT, seed=seed)
+    expect = {k: cfg.n_layers if k in kernels else 0 for k in LM_KERNELS}
+    none = {k: 0 for k in LM_KERNELS}
     kern, plain = make_prefill_step(model), make_prefill_step(model, use_kernel=False)
     kern32 = make_prefill_step(model32)
     plain32 = make_prefill_step(model32, use_kernel=False)
 
     # The main path: one counted bf16 prefill through the kernels.
-    out_bf16, counts = _counted(kern, params, toks, expect, "bf16 prefill")
+    out_bf16, counts = _counted(kern, params, toks, expect, f"{arch} bf16 prefill")
     want_shape = (LM_BATCH, 1, cfg.padded_vocab)
     if tuple(out_bf16.shape) != want_shape:
-        fail(f"prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
-    out32, _ = _counted(kern32, params, toks, expect, "fp32 prefill")
-    ref32, _ = _counted(plain32, params, toks, none, "fp32 plain prefill")
+        fail(f"{arch} prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
+    out32, _ = _counted(kern32, params, toks, expect, f"{arch} fp32 prefill")
+    ref32, _ = _counted(plain32, params, toks, none, f"{arch} fp32 plain prefill")
     err32 = _max_diff(out32, ref32)
-    print(f"prefill fp32 B={LM_BATCH} S={LM_PROMPT}: kernels vs plain max |diff| "
-          f"{err32:.3e} (max |logit| {float(ref32.abs().max()):.3e})")
-    if not torch.allclose(out32, ref32, **PREFILL_TOL):
-        fail(f"fp32 kernel prefill disagrees with the plain prefill: max |diff| "
-             f"{err32:.3e} beyond {PREFILL_TOL}")
-    ref_bf16, _ = _counted(plain, params, toks, none, "bf16 plain prefill")
-    print(f"prefill bf16: kernels vs fp32 plain max |diff| "
+    print(f"{arch} prefill fp32 B={LM_BATCH} S={LM_PROMPT}: kernels vs plain max |diff| "
+          f"{err32:.3e} (limit {tol}; max |logit| {float(ref32.abs().max()):.3e})")
+    if not torch.allclose(out32, ref32, **tol):
+        fail(f"{arch} fp32 kernel prefill disagrees with the plain prefill: max |diff| "
+             f"{err32:.3e} beyond {tol}")
+    ref_bf16, _ = _counted(plain, params, toks, none, f"{arch} bf16 plain prefill")
+    print(f"{arch} prefill bf16: kernels vs fp32 plain max |diff| "
           f"{_max_diff(out_bf16, ref32):.3e}, kernels vs bf16 plain "
           f"{_max_diff(out_bf16, ref_bf16):.3e}, bf16 plain vs fp32 plain "
           f"{_max_diff(ref_bf16, ref32):.3e} (reported, no limit)")
@@ -724,14 +806,13 @@ def lm_prefill_phase() -> tuple[dict, dict]:
         step = kern if which == "kernels" else plain
         walls[which].append(_wall_s(lambda: step(params, toks)))
     med = {k: statistics.median(v) for k, v in walls.items()}
-    print(f"prefill bf16 B={LM_BATCH} S={LM_PROMPT} wall s, median of 3: kernels "
-          f"{med['kernels']:.4f} {walls['kernels']}, plain {med['plain']:.4f} "
+    print(f"{arch} prefill bf16 B={LM_BATCH} S={LM_PROMPT} wall s, median of 3: "
+          f"kernels {med['kernels']:.4f} {walls['kernels']}, plain {med['plain']:.4f} "
           f"{walls['plain']}")
-    return counts, {"params": params, "model": model, "model32": model32,
-                    "prefill_s": med, "err32": err32}
+    return counts, {"params": params, "model": model, "model32": model32}
 
 
-def lm_decode_phase(state: dict) -> None:
+def lm_decode_phase(state: dict, arch: str) -> None:
     """A 256-token prompt teacher-forced through decode_step (fp32) against
     the kernel prefill's last logits."""
     import torch
@@ -750,15 +831,15 @@ def lm_decode_phase(state: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     err = _max_diff(logits, want)
-    print(f"decode fp32: {DECODE_PROMPT} teacher-forced steps (B=1) in {wall:.3f} s "
+    print(f"{arch} decode fp32: {DECODE_PROMPT} teacher-forced steps (B=1) in {wall:.3f} s "
           f"({DECODE_PROMPT / wall:.1f} tok/s); last logits vs kernel prefill max "
           f"|diff| {err:.3e}")
     if not torch.allclose(logits, want, **DECODE_TOL):
-        fail(f"decode disagrees with the prefill: max |diff| {err:.3e} beyond "
+        fail(f"{arch} decode disagrees with the prefill: max |diff| {err:.3e} beyond "
              f"{DECODE_TOL}")
 
 
-def lm_serving_phase(state: dict) -> None:
+def lm_serving_phase(state: dict, arch: str) -> None:
     """The serving CLI at full width, then the continuous batcher."""
     import numpy as np
     import torch
@@ -768,11 +849,11 @@ def lm_serving_phase(state: dict) -> None:
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = serve.main(["--arch", LM_ARCH, "--scale", "full", "--batch", "4",
+        rc = serve.main(["--arch", arch, "--scale", "full", "--batch", "4",
                          "--prompt-len", "32", "--gen", "16"])
     lines = out.getvalue().strip().splitlines()
     for line in lines:
-        print(f"serve: {line}")
+        print(f"serve {arch}: {line}")
     if rc != 0:
         fail(f"repro_torch.launch.serve exited {rc}")
     row = json.loads(lines[-1])
@@ -793,10 +874,12 @@ def lm_serving_phase(state: dict) -> None:
     stats = batcher.run_until_drained()
     wall = time.perf_counter() - t0
     summary = stats.summary()
-    print(f"batcher: 4 slots, 8 requests (prompts {[len(r.prompt) for r in reqs]}), "
-          f"{wall:.3f} s: {json.dumps(summary)}")
+    print(f"{arch} batcher: 4 slots, 8 requests (prompts {[len(r.prompt) for r in reqs]}), "
+          f"{wall:.3f} s, {summary['tokens_out'] / wall:.1f} generated tok/s: "
+          f"{json.dumps(summary)}")
     if summary["completed"] != 8 or any(len(r.generated) != 16 for r in reqs):
-        fail(f"the batcher did not answer all 8 requests with 16 tokens: {summary}")
+        fail(f"the {arch} batcher did not answer all 8 requests with 16 tokens: "
+             f"{summary}")
 
 
 def dense_prefill_phase() -> dict:
@@ -809,7 +892,7 @@ def dense_prefill_phase() -> dict:
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     toks = _tokens(model.cfg, LM_BATCH, LM_PROMPT, seed=3)
     L = model.cfg.n_layers
-    expect = {"flash_attention": L, "mamba_scan": 0}
+    expect = {k: L if k == "flash_attention" else 0 for k in LM_KERNELS}
     _, counts = _counted(make_prefill_step(model), params, toks, expect,
                          f"{DENSE_ARCH} bf16 prefill")
     out32, _ = _counted(make_prefill_step(model32), params, toks, expect,
@@ -856,19 +939,30 @@ def main() -> int:
     rows = parity_and_timing(mm_shapes, stencil_block, stencil_field)
     rows.update(segment_rowmax_phase())
     rows.update(lm_kernel_phase())
+    rows.update(wkv6_kernel_phase())
     counts = apps_phase()
     steady_times()
     pricer_phase()
     counts["segment_rowmax"] = tune_phase()
     torch.cuda.empty_cache()
-    lm_counts, lm_state = lm_prefill_phase()
-    counts.update(lm_counts)
-    lm_decode_phase(lm_state)
-    lm_serving_phase(lm_state)
+    lm_counts, lm_state = lm_prefill_phase(LM_ARCH, ("flash_attention", "mamba_scan"),
+                                           PREFILL_TOL, seed=1)
+    counts.update(flash_attention=lm_counts["flash_attention"],
+                  mamba_scan=lm_counts["mamba_scan"])
+    lm_decode_phase(lm_state, LM_ARCH)
+    lm_serving_phase(lm_state, LM_ARCH)
     del lm_state
     torch.cuda.empty_cache()
     rows["flash_attention"]["smollm"]["launches"] = dense_prefill_phase()[
         "flash_attention"]
+    torch.cuda.empty_cache()
+    rwkv_counts, rwkv_state = lm_prefill_phase(RWKV_ARCH, ("wkv6",), RWKV_PREFILL_TOL,
+                                               seed=4)
+    counts["wkv6"] = rwkv_counts["wkv6"]
+    lm_decode_phase(rwkv_state, RWKV_ARCH)
+    lm_serving_phase(rwkv_state, RWKV_ARCH)
+    del rwkv_state
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, row in rows.items():

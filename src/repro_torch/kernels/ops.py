@@ -21,6 +21,7 @@ from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
+from repro_torch.kernels import wkv6 as wkv_mod
 
 
 def _on_cpu(*xs: torch.Tensor) -> bool:
@@ -96,11 +97,37 @@ def mamba_scan(xs, dt, Bs, Cs, A):
     return ms_mod.mamba_scan_cuda(xs, dt, Bs, Cs, A)
 
 
+def wkv6_plain(r, k, v, w, u):
+    """The plain version in the model layout, as ``repro.kernels.ops``
+    wraps its kernel: (B,S,H,N) -> (BH,S,N), u broadcast over the batch,
+    then back around ``ref.wkv6``."""
+    B, S, H, N = r.shape
+
+    def to_flat(t):
+        return t.transpose(1, 2).reshape(B * H, S, N)
+
+    uf = u[None].expand(B, H, N).reshape(B * H, N)
+    y, s = ref.wkv6(to_flat(r), to_flat(k), to_flat(v), to_flat(w), uf)
+    return y.reshape(B, H, S, N).transpose(1, 2), s.reshape(B, H, N, N)
+
+
+def wkv6(r, k, v, w, u):
+    """RWKV-6 WKV from a zero state in the model layout: r/k/v/w (B,S,H,N)
+    fp32, u (H,N) -> (y (B,S,H,N), final state (B,H,N,N)). There is no
+    state argument: the kernel always starts from zeros (the reference's
+    wrapper takes one and drops it); a carried state stays on the model's
+    scan. The kernel reads the layout in place."""
+    if _on_cpu(r, k, v, w, u):
+        return wkv6_plain(r, k, v, w, u)
+    return wkv_mod.wkv6_cuda(r, k, v, w, u)
+
+
 _COUNTED = {"matmul": mm_mod.matmul_cuda,
             "stencil": st_mod.stencil_cuda,
             "segment_rowmax": sr_mod.segment_rowmax_cuda,
             "flash_attention": fa_mod.flash_attention_cuda,
-            "mamba_scan": ms_mod.mamba_scan_cuda}
+            "mamba_scan": ms_mod.mamba_scan_cuda,
+            "wkv6": wkv_mod.wkv6_cuda}
 
 
 def launch_counts() -> dict[str, int]:

@@ -73,6 +73,21 @@ def flash_attention(q, k, v, *, scale=None, window: int = 0, causal: bool = True
     return torch.einsum("bqk,bkd->bqd", p, v)
 
 
+def wkv6(r, k, v, w, u):
+    """Sequential-scan WKV6 from a zero state. r/k/v/w: (BH,T,N); u: (BH,N).
+    Returns (y (BH,T,N) in r's dtype, final state (BH,N,N) fp32), with the
+    Pallas kernel's order of operations at each step."""
+    BH, T, N = r.shape
+    s = torch.zeros((BH, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(T):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = k_t[:, :, None] * v_t[:, None, :]
+        ys.append(((s + u[:, :, None] * kv) * r_t[:, :, None]).sum(dim=1))
+        s = w_t[:, :, None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s
+
+
 def mamba_scan(xs, dt, Bs, Cs, A):
     """Sequential selective scan from a zero state. xs/dt: (B,T,di);
     Bs/Cs: (B,T,n); A: (di,n). Returns (y (B,T,di) in xs's dtype, final

@@ -6,7 +6,9 @@
 The port of ``repro.launch.serve``, with the same flags and output, plus
 ``--device`` (default ``cuda``: without a card it exits 2 unless
 ``--device cpu``). Weights come from a seeded ``torch.Generator`` on the
-device; ``--scale full`` runs the config at its published widths.
+device; ``--scale full`` runs the config at its published widths. Every
+family the port's registry builds serves: the dense decoder, RWKV-6 and
+Hymba.
 """
 from __future__ import annotations
 

@@ -16,8 +16,9 @@ import torch
 
 def make_prefill_step(model, use_kernel: bool = True) -> Callable:
     """``prefill_step(params, inputs)`` -> last-position logits (B,1,V):
-    the serving prefill, through the flash-attention (and, for Hymba,
-    selective-scan) kernels with ``use_kernel``."""
+    the serving prefill, with ``use_kernel`` through the model family's
+    kernels: flash-attention for the dense decoder, flash-attention and
+    selective scan for Hymba, WKV6 for RWKV-6."""
 
     @torch.no_grad()
     def prefill_step(params, inputs):

@@ -1,4 +1,4 @@
-"""LM zoo of the port: the dense decoder and Hymba, config-driven."""
+"""LM zoo of the port: the dense decoder, RWKV-6 and Hymba, config-driven."""
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models.params import (
     ParamDef,

@@ -5,18 +5,16 @@ from repro_torch.models.config import ModelConfig
 
 
 def build(cfg: ModelConfig):
-    """The port's model for ``cfg``: ``dense`` and ``hybrid`` families.
-    MoE/MLA configs raise from the decoder; ``ssm`` (RWKV-6) comes with
-    the rwkv6 slice of the port."""
+    """The port's model for ``cfg``: the ``dense``, ``ssm`` (RWKV-6) and
+    ``hybrid`` (Hymba) families. MoE/MLA configs raise from the decoder."""
     if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
 
         return DecoderLM(cfg)
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the RWKV-6 family is not ported yet; it comes with "
-            f"the rwkv6 slice of repro_torch.models (with the wkv6 kernel)"
-        )
+        from repro_torch.models.rwkv6 import RWKV6LM
+
+        return RWKV6LM(cfg)
     if cfg.family == "hybrid":
         from repro_torch.models.hymba import HymbaLM
 

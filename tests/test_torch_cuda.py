@@ -20,6 +20,7 @@ from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
+from repro_torch.kernels import wkv6 as wkv_mod
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -209,6 +210,56 @@ def test_mamba_scan_kernel_matches_plain(card, B, T, di, n):
     assert ops.launch_counts()["mamba_scan"] == 1
 
 
+# --------------------------------------------------------------------- wkv6
+def _wkv6_inputs(card, B, T, H, N, seed):
+    """Drawn as tests/test_kernels.py::test_wkv6_shapes draws them."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((B, T, H, N), generator=gen, device=card)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen, device=card)) * 0.5 + 0.4
+    u = 0.1 * torch.randn((H, N), generator=gen, device=card)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("B,T,H,N", [(4, 2048, 40, 64),    # rwkv6-3b prefill
+                                     (2, 1000, 3, 64),     # ragged T
+                                     (1, 1, 2, 64), (3, 33, 5, 32), (2, 100, 4, 16),
+                                     (1, 31, 1, 16)])
+def test_wkv6_kernel_matches_plain(card, B, T, H, N):
+    r, k, v, w, u = _wkv6_inputs(card, B, T, H, N, seed=T)
+    y, s = wkv_mod.wkv6_cuda(r, k, v, w, u)
+    y_ref, s_ref = ops.wkv6_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert y.shape == (B, T, H, N) and s.shape == (B, H, N, N)
+    torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
+    torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
+    assert ops.launch_counts()["wkv6"] == 1
+
+
+def test_wkv6_kernel_reads_strided_layout(card):
+    """r/k/v as (B,H,T,N) storage viewed as (B,T,H,N), and w a slice of a
+    wider tensor: read in place through their strides."""
+    B, T, H, N = 2, 77, 3, 32
+    r, k, v, w, u = _wkv6_inputs(card, B, T, H, N, seed=5)
+    r2, k2, v2 = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (r, k, v))
+    w2 = torch.cat([w, w], dim=-1)[..., :N]
+    y, s = ops.wkv6(r2, k2, v2, w2, u)
+    y_ref, s_ref = ops.wkv6_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
+    torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(card):
+    x, u = torch.ones((1, 8, 2, 64), device=card), torch.ones((2, 64), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_mod.wkv6_cuda(x.bfloat16(), x, x, x, u)
+    with pytest.raises(ValueError, match="head size"):
+        wkv_mod.wkv6_cuda(x[..., :8], x[..., :8], x[..., :8], x[..., :8], u[:, :8])
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_mod.wkv6_cuda(x, x, x, x.cpu(), u)
+    assert ops.launch_counts()["wkv6"] == 0
+
+
 # ------------------------------------------------------------------ models
 @pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-1.8b", "hymba-1.5b"])
 def test_reduced_prefill_through_the_kernels(card, arch):
@@ -230,3 +281,27 @@ def test_reduced_prefill_through_the_kernels(card, arch):
     torch.testing.assert_close(got, want, **tol)
     assert counts["flash_attention"] == model.cfg.n_layers
     assert counts["mamba_scan"] == (model.cfg.n_layers if arch == "hymba-1.5b" else 0)
+
+
+@pytest.mark.parametrize("d_model", [64, 128])
+def test_reduced_rwkv6_prefill_through_the_kernel(card, d_model):
+    """A reduced RWKV-6 prefill with the WKV6 kernel against the plain one
+    (fp32): one launch per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build
+
+    model = build(dataclasses.replace(get_config("rwkv6-3b").reduced(),
+                                      d_model=d_model))
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 150), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    got = make_prefill_step(model)(params, toks)
+    counts = ops.launch_counts()
+    want = make_prefill_step(model, use_kernel=False)(params, toks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    assert counts["wkv6"] == model.cfg.n_layers
+    assert counts["flash_attention"] == 0 and counts["mamba_scan"] == 0

@@ -30,7 +30,7 @@ for needed in sys.argv[2:]:
 print("imported", len(names))
 """
 
-# The LM serving slice: every module must be among those imported.
+# The LM serving slices: every module must be among those imported.
 LM_MODULES = [
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
     "repro_torch.models", "repro_torch.models.config",
@@ -38,6 +38,8 @@ LM_MODULES = [
     "repro_torch.models.transformer", "repro_torch.models.hymba",
     "repro_torch.models.registry", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.mamba_scan", "repro_torch.launch.steps",
+    "repro_torch.configs.rwkv6_3b", "repro_torch.models.rwkv6",
+    "repro_torch.kernels.wkv6",
     "repro_torch.launch.serve", "repro_torch.serving.scheduler",
     "repro_torch.serving.stats",
 ]

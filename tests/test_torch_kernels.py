@@ -22,6 +22,7 @@ from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
+from repro_torch.kernels import wkv6 as wkv_mod
 
 # The fp32 and bf16 tolerances of tests/test_kernels.py (blocked-vs-flat
 # accumulation order at k ~ 512; bf16 rounding).
@@ -30,7 +31,7 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NO_LAUNCHES = {"matmul": 0, "stencil": 0, "segment_rowmax": 0,
-               "flash_attention": 0, "mamba_scan": 0}
+               "flash_attention": 0, "mamba_scan": 0, "wkv6": 0}
 
 
 def _normal(seed, shape):
@@ -162,6 +163,14 @@ def test_build_needs_nvcc_and_keys_on_sources(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
+def test_build_compiles_every_kernel_source():
+    """Every CUDA source in csrc/ is built, and has a bound entry point."""
+    assert sorted(build.SOURCES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    texts = [(build.CSRC / src).read_text() for src in build.SOURCES]
+    for name in build.SIGNATURES:
+        assert sum(f'extern "C" int {name}(' in t for t in texts) == 1, name
+
+
 def test_plain_matmul_keeps_fp32_out_of_tf32():
     ref.matmul(torch.ones(2, 2), torch.ones(2, 2))
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -288,4 +297,113 @@ def test_lm_kernel_wrappers_refuse_non_cuda_tensors():
         ms_mod.mamba_scan_cuda(xs, xs, Bs, Bs, A)
     with pytest.raises(ValueError, match="CUDA"):
         ops.mamba_scan(*(x.to("meta") for x in (xs, xs, Bs, Bs, A)))
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+# --------------------------------------------------------------------- wkv6
+def _wkv6_inputs(lead, n, seed=50, w_scale=0.5, w_shift=0.4):
+    """Drawn as tests/test_kernels.py::test_wkv6_shapes draws them: r, k, v
+    at 0.5, w = sigmoid(.)*0.5+0.4, u at 0.1; ``lead`` is (BH, T) or
+    (B, T, H)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = ((0.5 * rng.normal(size=(*lead, n))).astype(np.float32)
+               for _ in range(3))
+    w = (w_scale / (1 + np.exp(-rng.normal(size=(*lead, n)))) + w_shift
+         ).astype(np.float32)
+    return r, k, v, w
+
+
+@pytest.mark.parametrize("t,n,bt", [(64, 16, 32), (128, 32, 64), (128, 64, 128)])
+def test_plain_wkv6_matches_pallas(t, n, bt):
+    """The shapes of tests/test_kernels.py::test_wkv6_shapes."""
+    from repro.kernels.wkv6 import wkv6_pallas
+
+    BH = 3
+    r, k, v, w = _wkv6_inputs((BH, t), n)
+    u = (0.1 * np.random.default_rng(51).normal(size=(BH, n))).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    y_p, s_p = wkv6_pallas(*jargs, bt=bt, interpret=True)
+    y_r, s_r = jref.wkv6(*jargs)
+    y, s = ref.wkv6(*map(torch.from_numpy, (r, k, v, w, u)))
+    assert y.shape == (BH, t, n) and s.shape == (BH, n, n) and s.dtype == torch.float32
+    for out, expect in ((y, y_p), (s, s_p), (y, y_r), (s, s_r)):
+        _close(out, expect, "float32")
+
+
+@pytest.mark.parametrize("B,S,H,N", [(2, 64, 3, 16), (1, 128, 2, 64)])
+def test_ops_wkv6_matches_jax_ops(B, S, H, N):
+    """The model-layout wrapper ((B,S,H,N) <-> (BH,S,N), u broadcast over
+    the batch) against repro.kernels.ops.wkv6 (Pallas in interpret mode)."""
+    from repro.kernels import ops as jops
+
+    r, k, v, w = _wkv6_inputs((B, S, H), N, seed=52)
+    u = (0.1 * np.random.default_rng(53).normal(size=(H, N))).astype(np.float32)
+    y_j, s_j = jops.wkv6(*map(jnp.asarray, (r, k, v, w, u)))
+    y, s = ops.wkv6(*map(torch.from_numpy, (r, k, v, w, u)))
+    assert y.shape == (B, S, H, N) and s.shape == (B, H, N, N)
+    _close(y, y_j, "float32")
+    _close(s, s_j, "float32")
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("T", [1, 37, 100])
+def test_ops_wkv6_any_length_matches_jax_ref(T):
+    """Prompts are not multiples of the Pallas chunk: any T, against the
+    JAX package's sequential oracle."""
+    B, H, N = 2, 2, 32
+    r, k, v, w = _wkv6_inputs((B, T, H), N, seed=54)
+    u = (0.1 * np.random.default_rng(55).normal(size=(H, N))).astype(np.float32)
+    y, s = ops.wkv6(*map(torch.from_numpy, (r, k, v, w, u)))
+
+    def flat(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, T, N))
+
+    y_r, s_r = jref.wkv6(flat(r), flat(k), flat(v), flat(w),
+                         jnp.asarray(np.broadcast_to(u, (B, H, N)).reshape(B * H, N)))
+    _close(y.transpose(1, 2).reshape(B * H, T, N), y_r, "float32")
+    _close(s.reshape(B * H, N, N), s_r, "float32")
+
+
+def test_ops_wkv6_matches_model_scan():
+    """The wrapper against the model's scan from a zero state, at the
+    shapes and 2e-5 of tests/test_kernels.py::test_wkv6_matches_model_layer."""
+    from repro.models.rwkv6 import wkv6_scan as jax_scan
+    from repro_torch.models.rwkv6 import wkv6_scan
+
+    B, S, H, N = 1, 48, 2, 16
+    r, k, v, w = _wkv6_inputs((B, S, H), N, seed=56, w_scale=0.4, w_shift=0.5)
+    u = (0.1 * np.random.default_rng(57).normal(size=(H, N))).astype(np.float32)
+    targs = list(map(torch.from_numpy, (r, k, v, w, u)))
+    y, s = ops.wkv6(*targs)
+    y_s, s_s = wkv6_scan(*targs, torch.zeros((B, H, N, N)))
+    y_j, s_j = jax_scan(*map(jnp.asarray, (r, k, v, w, u)),
+                        jnp.zeros((B, H, N, N), jnp.float32))
+    tol = dict(rtol=2e-5, atol=2e-5)
+    for out, expect in ((y, y_s), (s, s_s), (y, y_j), (s, s_j)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **tol)
+
+
+def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take():
+    """CPU tensors, other dtypes, head sizes outside 16/32/64 and misfit
+    shapes are refused before anything launches; ops.wkv6 has no state
+    argument to drop."""
+    x, u = torch.ones(1, 4, 2, 16), torch.ones(2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_mod.wkv6_cuda(x, x, x, x, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.wkv6(*(t.to("meta") for t in (x, x, x, x, u)))
+    with pytest.raises(ValueError, match="float32"):
+        wkv_mod.wkv6_cuda(x.double(), x, x, x, u)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_mod.wkv6_cuda(x, x, x, x.bfloat16(), u)
+    for n in (8, 48, 128):
+        xn, un = torch.ones(1, 4, 2, n), torch.ones(2, n)
+        with pytest.raises(ValueError, match="head size"):
+            wkv_mod.wkv6_cuda(xn, xn, xn, xn, un)
+    with pytest.raises(ValueError, match="do not fit"):
+        wkv_mod.wkv6_cuda(x, x, x, x, torch.ones(3, 16))
+    with pytest.raises(ValueError, match="do not fit"):
+        wkv_mod.wkv6_cuda(x, x[:, :3], x, x, u)
+    with pytest.raises(TypeError):
+        ops.wkv6(x, x, x, x, u, torch.zeros(1, 2, 16, 16))
     assert ops.launch_counts() == NO_LAUNCHES

@@ -89,7 +89,29 @@ def test_batcher_serves_hymba():
     assert all(len(r.generated) == r.max_new_tokens for r in reqs)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "hymba-1.5b"])
+def test_batcher_gives_the_jax_batchers_tokens_for_rwkv6():
+    """The recurrent state (WKV and token-shift caches) through the slot
+    pool: the same tokens as the JAX batcher on the same weights."""
+    jm = jax_build(jax_config("rwkv6-3b").reduced())
+    jp = jm.init(jax.random.key(1))
+    tm = build(get_config("rwkv6-3b").reduced())
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    vocab = tm.cfg.vocab_size
+    jreqs, treqs = _requests(JaxRequest, vocab, n=5, seed=3), _requests(Request, vocab,
+                                                                         n=5, seed=3)
+    jb = JaxBatcher(jm, jp, n_slots=2, max_len=24)
+    tb = ContinuousBatcher(tm, tp, n_slots=2, max_len=24, device="cpu")
+    for jr, tr in zip(jreqs, treqs):
+        jb.submit(jr)
+        tb.submit(tr)
+    jstats, tstats = jb.run_until_drained(), tb.run_until_drained()
+    assert [r.generated for r in treqs] == [r.generated for r in jreqs]
+    assert (tstats.completed, tstats.steps, tstats.tokens_out) == (
+        jstats.completed, jstats.steps, jstats.tokens_out)
+    assert tstats.completed == 5
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "hymba-1.5b", "rwkv6-3b"])
 def test_serve_cli_on_cpu(arch):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

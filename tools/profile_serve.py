@@ -2,10 +2,13 @@
 """Where the time of the port's LM serving path goes, on one NVIDIA card.
 
     python3 tools/profile_serve.py [--arch hymba-1.5b] [--top 15]
+    python3 tools/profile_serve.py --arch rwkv6-3b
 
 From the root of a checkout, on a machine with a CUDA card, at the
 config's full width with weights from a seeded generator on the card
-(bf16 compute, the config's own dtype):
+(bf16 compute, the config's own dtype), for any family the port's
+registry builds (the prefill runs that family's kernels: flash_attention
+and mamba_scan for Hymba, wkv6 for RWKV-6):
 
 1. the prefill step with the kernels (B=4, prompt 2048): wall time of
    three runs after a warm-up, then one run under ``torch.profiler``: the
