@@ -6,13 +6,17 @@
 From the root of a checkout, with no arguments, on a machine with one
 NVIDIA H100:
 
-1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   and prints each kernel function's registers, shared memory and spill
+   bytes from ptxas; a spill in the bf16 flash or fp32 matmul kernels
+   fails the run;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it (matmul fp32 rtol=atol=1e-4 and bf16 2e-2, the
-   JAX package's kernel tolerances; stencil fp32 1e-4; segment_rowmax
-   float64 1e-12 and float32 1e-4), and times both, with one library call
-   beside each as a yardstick where one PyTorch call computes the same
-   function;
+   shapes its path gives it and at the fp32 matmul kernel's slice and
+   tile edges (matmul fp32 rtol=atol=1e-4 and bf16 2e-2, the JAX
+   package's kernel tolerances; stencil fp32 1e-4; segment_rowmax float64
+   1e-12 and float32 1e-4), and times both, with one library call beside
+   each as a yardstick where one PyTorch call computes the same function,
+   and the achieved TFLOP/s and share of the bound;
 3. drives the execute path: all nine paper apps through ``repro_torch.apps``
    at the registry's own problem sizes and default processor counts, each
    checked against its single-device oracle on the card, with the kernels'
@@ -33,7 +37,10 @@ NVIDIA H100:
    prefill (B=4, S=2048, 25 heads over 5 KV heads, d=64, window 1024),
    the smollm-135m prefill (9 over 3 heads, no window) and a ragged
    length, in bf16 (rtol=atol=2e-2) and fp32 (1e-4), with
-   ``F.scaled_dot_product_attention`` as the yardstick; mamba_scan at the
+   ``F.scaled_dot_product_attention`` as the yardstick, then the bf16
+   kernel's tile edges (S one short of, at and one past a 64-row tile,
+   windows inside and on a key tile, not causal, d 16 and 128, a
+   misaligned operand the wrapper copies); mamba_scan at the
    hymba prefill (B=4, T=2048, d_inner 3200, state 16) and a ragged one,
    fp32 (1e-4);
 7. drives the LM serving path at hymba-1.5b's full width (32 layers,
@@ -41,8 +48,9 @@ NVIDIA H100:
    kernels (B=4, prompt 2048 > the 1024 window), counters set to 0 just
    before and read just after (32 launches of each kernel); in fp32 its
    last logits against the plain prefill (rtol 1e-2, atol 5e-2, the
-   mixer tolerance of tests/test_kernels.py), the bf16 difference
-   reported, and the median prefill wall time with and without the
+   mixer tolerance of tests/test_kernels.py), beside it the bf16 kernel
+   prefill's difference from the bf16 plain one (reported; gated only on
+   finite logits), and the median prefill wall time with and without the
    kernels; a 256-token prompt teacher-forced through ``decode_step``
    against the kernel prefill's last logits (fp32, 2e-3); the serving CLI
    (batch 4, prompt 32, gen 16) and a 4-slot ``ContinuousBatcher``
@@ -112,13 +120,30 @@ KERNELS = {
                 "replaces": "src/repro/kernels/stencil.py:36"},
     "segment_rowmax": {"source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
                        "replaces": "src/repro/kernels/segment_reduce.py:52"},
-    "flash_attention": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": {"source": "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+                        "fp32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "replaces": "src/repro/kernels/flash_attention.py:79"},
     "mamba_scan": {"source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "replaces": "src/repro/kernels/mamba_scan.py:58"},
     "wkv6": {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
              "replaces": "src/repro/kernels/wkv6.py:59"},
 }
+# The fp32 matmul kernel's slice and tile edges (8-deep slices, 128 x 128
+# tiles; K and N multiples of 4 take its float4 path), and its target
+# against torch.matmul at the apps' block shape (reported, not gated).
+MM_EDGES = [(2, 70, 4, 36), (2, 70, 5, 36), (1, 200, 20, 136), (1, 200, 13, 136),
+            (1, 129, 64, 129), (2, 129, 64, 132)]
+MM_TARGET = 1.5
+# The bf16 flash kernel's tile edges (64 queries, 64 keys a tile):
+# (B, S, H, Kv, d, window, causal, misaligned k).
+FLASH_EDGES = [(2, 63, 4, 2, 64, 0, True, False), (2, 64, 4, 2, 64, 0, True, False),
+               (2, 65, 4, 2, 64, 0, True, False), (1, 129, 6, 2, 64, 0, True, False),
+               (2, 300, 4, 2, 64, 37, True, False), (1, 512, 4, 1, 64, 128, True, False),
+               (2, 257, 4, 2, 64, 64, False, False), (2, 256, 4, 2, 16, 0, True, False),
+               (1, 320, 4, 2, 128, 100, True, False), (2, 200, 4, 2, 64, 50, True, True)]
+# Sources whose kernel functions must not spill (ptxas -v), and the
+# functions of each that the rule covers.
+NO_SPILL = {"flash_attention_bf16.cu": "flash_bf16_kernel", "matmul.cu": "sgemm_kernel"}
 # The LM serving path: hymba-1.5b's prefill shape and the checks' limits.
 LM_ARCH = "hymba-1.5b"
 LM_BATCH, LM_PROMPT = 4, 2048
@@ -160,6 +185,59 @@ def bound_ms(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tflops(flops: float, ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
+def _kernel_name(mangled: str) -> str:
+    """``ns::name<arg>`` of a mangled kernel in a namespace, as
+    ``name<arg>`` (an int, bool or type argument); else as it is."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    rest = rest[m.end() + int(m.group(1)):]
+    arg = re.match(r"IL[ib](\d+)E", rest)
+    if arg:
+        return f"{name}<{arg.group(1)}>"
+    arg = re.match(r"I(\d+)", rest)
+    if arg:
+        return f"{name}<{rest[arg.end():arg.end() + int(arg.group(1))]}>"
+    return name
+
+
+def ptxas_report(log: str) -> None:
+    """Each kernel function's registers, shared memory and spill bytes, as
+    ``nvcc -Xptxas -v`` printed them; fails on a spill in ``NO_SPILL``."""
+    import re
+
+    source, func, spills, failures = "", "", 0, []
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "Compiling entry function" in line:
+            func = _kernel_name(re.search(r"'([^']+)'", line).group(1))
+            spills = 0
+        elif "spill stores" in line:
+            spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"  ptxas: {source:24s} {func:28s} {regs:>3s} registers, "
+                  f"{smem.group(1) if smem else 0} bytes static smem, {spills} bytes spilled")
+            if spills and NO_SPILL.get(source, "\0") in func:
+                failures.append(f"{source} {func} spills {spills} bytes")
+            spills = 0
+    if failures:
+        fail("; ".join(failures))
 
 
 def app_shapes():
@@ -211,6 +289,7 @@ def parity_and_timing(mm_shapes, stencil_block, stencil_field) -> dict:
     # ---- matmul: every app block shape in fp32 and bf16, plus a ragged one.
     cases = [(s, dt) for s in mm_shapes for dt in ("float32", "bfloat16")]
     cases += [((3, 1000, 777, 513), "float32"), ((3, 1000, 777, 513), "bfloat16")]
+    cases += [(s, "float32") for s in MM_EDGES]
     for (b, m, k, n), dt in cases:
         dtype = getattr(torch, dt)
         a = torch.randn((b, m, k), generator=gen, device="cuda").to(dtype)
@@ -225,11 +304,14 @@ def parity_and_timing(mm_shapes, stencil_block, stencil_field) -> dict:
         ms = time_ms(lambda: mm_mod.matmul_cuda(a, w), reps=10)
         plain = time_ms(lambda: ref.matmul(a, w), reps=10)
         lib = time_ms(lambda: torch.matmul(a, w), reps=10)
-        print(f"time   matmul {dt:8s} batch={b} {m}x{k}x{n}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms")
+        flops = 2.0 * b * m * n * k
+        bnd, by = bound_ms(flops, 4.0 * b * (m * k + k * n + m * n), dt)
+        print(f"time   matmul {dt:8s} batch={b} {m}x{k}x{n}: kernel {ms:.4f} ms "
+              f"({tflops(flops, ms)}, {bnd / ms:.1%} of bound), plain {plain:.4f} ms, "
+              f"torch.matmul {lib:.4f} ms ({tflops(flops, lib)}); kernel / torch.matmul "
+              f"{ms / lib:.3f} (target <= {MM_TARGET})")
         if (b, m, k, n) != mm_shapes[0]:
             continue
-        bnd, by = bound_ms(2.0 * b * m * n * k, 4.0 * b * (m * k + k * n + m * n), dt)
         rows["matmul"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                           "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
                           "shape": [b, m, k, n], "dtype": dt}
@@ -570,6 +652,39 @@ def _sdpa(q, k, v, window: int):
                                                   enable_gqa=True)
 
 
+def flash_edges_phase(gen) -> float:
+    """The bf16 flash kernel against its plain version at its tile edges
+    (``FLASH_EDGES``); the last case hands it a k whose heads start 4
+    elements into a padded row, which the wrapper copies."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+
+    err_all = 0.0
+    for B, S, H, Kv, d, window, causal, misaligned in FLASH_EDGES:
+        q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+        if misaligned:
+            k = torch.randn((B, S, Kv * d + 4), generator=gen, device="cuda").to(
+                torch.bfloat16)[..., 4:].unflatten(-1, (Kv, d))
+            if fa_mod.bf16_ready(k):
+                fail("the misaligned flash operand counts as aligned")
+        else:
+            k = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out = fa_mod.flash_attention_cuda(q, k, v, window=window, causal=causal)
+        expect = ops.flash_attention_plain(q, k, v, window=window, causal=causal)
+        torch.cuda.synchronize()
+        tag = (f"flash_attention bfloat16 B={B} S={S} H={H}/{Kv} d={d} window={window}"
+               f"{'' if causal else ' not causal'}{' misaligned k' if misaligned else ''}")
+        if not torch.isfinite(out.float()).all():
+            fail(f"{tag}: non-finite output")
+        err = check_close(tag, out, expect, "bfloat16")
+        err_all = max(err_all, err)
+        print(f"parity {tag}: max_abs_err={err:.3e}")
+    return err_all
+
+
 def lm_kernel_phase() -> dict:
     """flash_attention and mamba_scan against their plain versions at the
     LM serving path's shapes, then timed with their bounds."""
@@ -608,12 +723,17 @@ def lm_kernel_phase() -> dict:
             lib = time_ms(_sdpa(q, k, v, window), reps=10)
             es = q.element_size()
             nbytes = es * (2 * q.numel() + k.numel() + v.numel())
-            bnd, by = bound_ms(4.0 * d * B * H * _attention_pairs(S, window), nbytes, dt)
-            print(f"time   {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"sdpa {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+            flops = 4.0 * d * B * H * _attention_pairs(S, window)
+            bnd, by = bound_ms(flops, nbytes, dt)
+            print(f"time   {tag}: kernel {ms:.4f} ms ({tflops(flops, ms)}, "
+                  f"{bnd / ms:.1%} of bound), plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+                  f"({tflops(flops, lib)}), bound {bnd:.5f} ms ({by}); kernel / sdpa "
+                  f"{ms / lib:.3f}" + (" (target <= 1)" if dt == "bfloat16" else ""))
             fa_rows[(H, dt)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                                 "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
                                 "shape": [B, S, H, Kv, d, window], "dtype": dt}
+
+    fa_err = max(fa_err, flash_edges_phase(gen))
 
     # mamba_scan: hymba's prefill shape (timed) and a ragged one.
     ms_err, ms_row = 0.0, None
@@ -788,16 +908,17 @@ def lm_prefill_phase(arch: str, kernels: tuple[str, ...], tol: dict,
         fail(f"{arch} prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
     out32, _ = _counted(kern32, params, toks, expect, f"{arch} fp32 prefill")
     ref32, _ = _counted(plain32, params, toks, none, f"{arch} fp32 plain prefill")
+    ref_bf16, _ = _counted(plain, params, toks, none, f"{arch} bf16 plain prefill")
     err32 = _max_diff(out32, ref32)
-    print(f"{arch} prefill fp32 B={LM_BATCH} S={LM_PROMPT}: kernels vs plain max |diff| "
-          f"{err32:.3e} (limit {tol}; max |logit| {float(ref32.abs().max()):.3e})")
+    print(f"{arch} prefill B={LM_BATCH} S={LM_PROMPT} last logits, kernels vs plain max "
+          f"|diff|: fp32 {err32:.3e} (limit {tol}; max |logit| "
+          f"{float(ref32.abs().max()):.3e}), bf16 {_max_diff(out_bf16, ref_bf16):.3e} "
+          f"(finite; no limit)")
     if not torch.allclose(out32, ref32, **tol):
         fail(f"{arch} fp32 kernel prefill disagrees with the plain prefill: max |diff| "
              f"{err32:.3e} beyond {tol}")
-    ref_bf16, _ = _counted(plain, params, toks, none, f"{arch} bf16 plain prefill")
     print(f"{arch} prefill bf16: kernels vs fp32 plain max |diff| "
-          f"{_max_diff(out_bf16, ref32):.3e}, kernels vs bf16 plain "
-          f"{_max_diff(out_bf16, ref_bf16):.3e}, bf16 plain vs fp32 plain "
+          f"{_max_diff(out_bf16, ref32):.3e}, bf16 plain vs fp32 plain "
           f"{_max_diff(ref_bf16, ref32):.3e} (reported, no limit)")
 
     # Wall time in turns: kernels, plain, plain, kernels, kernels, plain.
@@ -931,9 +1052,7 @@ def main() -> int:
     lib = build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.seconds:.2f} s) -> {lib.path.relative_to(ROOT)}")
-    for line in lib.log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    ptxas_report(lib.log)
 
     mm_shapes, stencil_block, stencil_field = app_shapes()
     rows = parity_and_timing(mm_shapes, stencil_block, stencil_field)
@@ -964,6 +1083,11 @@ def main() -> int:
     del rwkv_state
     torch.cuda.empty_cache()
 
+    for name, row in rows.items():
+        print(f"bound share {name:16s} {row['dtype']:8s} kernel {row['ms']:.5f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}): {row['bound_ms'] / row['ms']:.1%}"
+              + (f"; library {row['library_ms']:.5f} ms, kernel / library "
+                 f"{row['ms'] / row['library_ms']:.3f}" if row["library_ms"] else ""))
     kernels = []
     for name, row in rows.items():
         kernels.append({

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("matmul.cu", "stencil.cu", "segment_reduce.cu", "flash_attention.cu",
-           "mamba_scan.cu", "wkv6.cu", "errors.cu")
+           "flash_attention_bf16.cu", "mamba_scan.cu", "wkv6.cu", "errors.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libmapple_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

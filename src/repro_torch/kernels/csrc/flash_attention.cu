@@ -1,16 +1,16 @@
 // Causal (optionally sliding-window) flash attention for Hopper (sm_90a),
-// fp32 and bf16 inputs, fp32 online softmax.
+// fp32 inputs, fp32 online softmax on the CUDA cores. bf16 inputs take
+// flash_attention_bf16.cu (tensor cores).
 //
 // Replaces: src/repro/kernels/flash_attention.py `flash_attention_pallas`
-// (body `_flash_kernel`), reached from models/layers.py `attention(
-// use_pallas=True)` through kernels/ops.py `flash_attention`: the prefill
-// attention of the dense decoder and of Hymba.
+// (body `_flash_kernel`) for fp32 inputs, reached from models/layers.py
+// `attention(use_pallas=True)` through kernels/ops.py `flash_attention`:
+// the prefill attention of the dense decoder and of Hymba.
 //
 //   s = (q . k) * scale, masked to -1e30 where k > q (causal) or
 //   q - k >= window; running max m and denominator l in fp32;
-//   p = exp(s - m); acc = acc * exp(m_prev - m) + p' @ v, with p' = p
-//   rounded to v's dtype (as the Pallas kernel casts p before its PV
-//   product); out = acc / max(l, 1e-30), in q's dtype.
+//   p = exp(s - m); acc = acc * exp(m_prev - m) + p @ v;
+//   out = acc / max(l, 1e-30).
 //
 // The mask stays the finite -1e30 of the reference, not -inf: a row whose
 // first tile is wholly masked takes m = -1e30 and p = 1 on it, and the
@@ -18,27 +18,25 @@
 // difference -inf - -inf would be NaN.
 //
 // What bounds it on this card: 4*d operations per (query, key) pair that
-// the mask lets through (q.k and p.v), against 2 bytes (bf16) or 4 (fp32)
-// of q, k, v and out per row: far above one operation per byte at
-// S = 2048, so the bound is the tensor cores' rate (bf16) or the CUDA
-// cores' fp32 rate. This first kernel computes on the CUDA cores in fp32
-// (tensor-core mma/wgmma is later work), so bf16 runs far from its bound.
+// the mask lets through (q.k and p.v), against 4 bytes of q, k, v and out
+// per row element: far above one operation per byte at S = 2048, so the
+// bound is the CUDA cores' fp32 rate (67 TFLOP/s). fp32 stays in full fp32
+// (TF32 is off everywhere), so the tensor cores are not an option here.
 //
 // Design: one block of 256 threads per (batch*head, 64-query tile). The Q
-// tile and each 64-key K/V tile are staged in shared memory in fp32 (K
-// transposed, rows padded by one float so that neither the transposing
-// stores nor the reads conflict in banks). A 16 x 16 thread grid: thread
-// (ty, tx) owns query rows ty + 16i (i < 4) and, for the scores, key
-// columns tx + 16j (j < 4), for the output, head-dim columns tx + 16j
-// (j < d/16). Row max and row sum reduce over the 16 tx lanes with warp
-// shuffles; p goes through shared memory to the PV product. Key tiles
-// above the diagonal, and with a window the tiles wholly left of it, are
-// never loaded. Any S: the ragged tile's missing rows are zero-filled, its
-// missing keys masked, and its missing queries not stored. GQA without a
-// repeat: query head h reads KV head h / (H / Kv). The kernel reads q, k,
-// v and writes out through element strides (last dim contiguous), so the
-// model layout (B, S, heads, d) needs no copy.
-#include <cuda_bf16.h>
+// tile and each 64-key K/V tile are staged in shared memory (K transposed,
+// rows padded by one float so that neither the transposing stores nor the
+// reads conflict in banks). A 16 x 16 thread grid: thread (ty, tx) owns
+// query rows ty + 16i (i < 4) and, for the scores, key columns tx + 16j
+// (j < 4), for the output, head-dim columns tx + 16j (j < d/16). Row max
+// and row sum reduce over the 16 tx lanes with warp shuffles; p goes
+// through shared memory to the PV product. Key tiles above the diagonal,
+// and with a window the tiles wholly left of it, are never loaded. Any S:
+// the ragged tile's missing rows are zero-filled, its missing keys masked,
+// and its missing queries not stored. GQA without a repeat: query head h
+// reads KV head h / (H / Kv). The kernel reads q, k, v and writes out
+// through element strides (last dim contiguous), so the model layout
+// (B, S, heads, d) needs no copy.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,16 +54,11 @@ constexpr int KP = BK + 1;        // padded row of K^T and P
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {     // element strides of (batch, seq, head); the last dim is contiguous
   int64_t b, s, h;
@@ -240,11 +233,11 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
 
 }  // namespace
 
-// C entry points (bound with ctypes). q (B, S, H, d), k/v (B, S, Kv, d) and
-// o (B, S, H, d) are addressed through `strides`, 12 int64 element strides
+// C entry point (bound with ctypes). q (B, S, H, d), k/v (B, S, Kv, d) and
+// o (B, S, H, d) fp32 are addressed through `strides`, 12 int64 element strides
 // (batch, seq, head) of q, k, v and o in that order; the last dim is
 // contiguous. d is a multiple of 16 up to 128 and H a multiple of Kv; the
-// wrapper checks both. Each returns cudaGetLastError() right after the
+// wrapper checks both. Returns cudaGetLastError() right after the
 // launch (or the attribute call's error); 0 means the launch was accepted.
 extern "C" int mapple_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                           const void* strides, int B, int S, int H, int Kv,
@@ -252,12 +245,4 @@ extern "C" int mapple_flash_attention_f32(const void* q, const void* k, const vo
                                           void* stream) {
   return launch<float>(q, k, v, o, static_cast<const int64_t*>(strides), B, S, H, Kv, d, scale,
                        window, causal, stream);
-}
-
-extern "C" int mapple_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                           const void* strides, int B, int S, int H, int Kv,
-                                           int d, float scale, int window, int causal,
-                                           void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, static_cast<const int64_t*>(strides), B, S, H, Kv, d,
-                               scale, window, causal, stream);
 }

@@ -1,4 +1,5 @@
-// Batched tiled matrix product for Hopper (sm_90a): C[b] = A[b] @ B[b].
+// Batched matrix product for Hopper (sm_90a): C[b] = A[b] @ B[b], fp32
+// accumulation, output in A's dtype.
 //
 // Replaces: src/repro/kernels/matmul.py `matmul_pallas` (body `_matmul_kernel`),
 // the TPU kernel behind every rank's block product in the six distributed
@@ -9,31 +10,57 @@
 // elements, several hundred operations per byte: far above the card's
 // ridge, so arithmetic bounds it. fp32 inputs must stay full fp32 (the
 // tests hold them to 1e-4, which TF32 breaks), so the fp32 bound is the
-// CUDA cores' peak (67 TFLOP/s on H100 SXM); bf16 inputs are bounded by the
-// tensor cores' bf16 peak, which this kernel does not use yet.
+// CUDA cores' FMA rate (67 TFLOP/s on H100 SXM), and the kernel's job is to
+// keep the FMA pipes fed: few shared-memory instructions per FMA, global
+// latency hidden behind the arithmetic, few barriers. The first kernel here
+// read shared memory as 32-bit scalars (16 loads per 64 FMAs), took two
+// barriers per 16-deep slice and never overlapped its global loads with the
+// FMAs: about 22 TFLOP/s at 4 x 2048^3.
 //
-// Design (right and simple first):
+// fp32 design (`sgemm_kernel`), the classic register-blocked SGEMM:
 //   * one 256-thread block per 128 x 128 output tile and batch entry
 //     (gridDim.z is the batch: the stacked rank dims, so one launch serves
-//     every virtual rank);
-//   * K streams through shared memory in 16-deep slices, converted to fp32
-//     on the way in (bf16 inputs are widened, then everything is fp32);
-//   * each thread keeps an 8 x 8 fp32 micro-tile of C in registers: 64
-//     fused multiply-adds per 16 shared-memory loads. Its rows and columns
-//     are strided by 16, so a warp's reads of the B slice hit 16
-//     consecutive words (no bank conflicts), its reads of the A slice are
-//     broadcasts, and its stores of C are coalesced;
-//   * every load and store is masked, so any M, N, K works (the TPU kernel
-//     asserted even tiling; this kernel's domain is a superset);
-//   * C is written in A's dtype after fp32 accumulation, as on the TPU.
+//     every virtual rank); __launch_bounds__(256, 2), so two blocks share
+//     an SM (at most 128 registers a thread; ptxas uses 127-128 without
+//     spilling). One block an SM and 16-deep slices were tried and ran no
+//     faster;
+//   * warp tiling: 8 warps of 64 x 32 (2 x 4); a warp's 32 lanes are 8 x 4,
+//     and lane (tm, tn) owns an 8 x 8 accumulator, rows wm*64 + tm*4 + {0..3}
+//     and + 32, columns wn*32 + tn*4 + {0..3} and + 16: 2 x 2 fragments of
+//     4 x 4, so that each k step reads its 8 A and 8 B values with four
+//     128-bit shared loads (LDS.128) for 64 FMAs;
+//   * A is stored k-major (transposed) in shared memory, As[k][row], rows
+//     padded to 132 floats; B row-major, Bs[k][col]. Reads do not conflict
+//     in banks: a warp's A read covers 8 consecutive float4s of one k row
+//     (128 bytes, lanes with one tm broadcast) and its B read 4 (64
+//     bytes). Nor do the stores: thread t writes A's row t/2 at k
+//     (t%2)*4 + i, so in a warp 16 consecutive rows land on banks
+//     (4i + r) % 32 for k < 4 and (16 + 4i + r) % 32 for k >= 4 (132 = 4
+//     mod 32), 32 distinct banks; B rows are stored as contiguous float4s;
+//   * K streams in 8-deep slices through a ring of two shared stages. For
+//     slice t+1, B goes global -> shared with 16-byte cp.async and A is
+//     loaded as one float4 a thread into registers (it is transposed on
+//     the way into shared memory); both are issued before slice t's 512
+//     FMAs a thread and land after them, so global latency hides behind
+//     the arithmetic, with one __syncthreads per slice;
+//   * a vectorised fast path (float4 loads, cp.async, float4 stores) when
+//     K and N are multiples of 4 and A, B and C are 16-byte aligned (every
+//     app shape); otherwise the same kernel loads A and stores C element by
+//     element and copies B with 4-byte cp.async. Every load and store is masked (a float4 is wholly in or out
+//     when K and N are multiples of 4), so any M, N, K works: the TPU
+//     kernel asserted even tiling, this kernel's domain is a superset.
 // Operands are dense row-major per batch entry: the Python wrapper
 // materialises a broadcast (replicated) operand with `.contiguous()`.
-// Not yet here: tensor cores (mma.sync / wgmma), TMA and a pipelined ring
-// of shared-memory stages; those are later work.
+//
+// bf16 inputs (`matmul_kernel`, no main path uses them) keep the first,
+// simple design: 128 x 128 tiles, 16-deep slices widened to fp32 in shared
+// memory, an 8 x 8 micro-tile of strided rows and columns on the CUDA
+// cores, two barriers per slice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -47,9 +74,7 @@ constexpr int LANES_N = BN / TN;            // 16 thread columns
 constexpr int THREADS = LANES_M * LANES_N;  // 256
 constexpr int PAD = 4;                      // skews the transposed A slice's banks
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <typename T>
@@ -125,6 +150,165 @@ matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ 
   }
 }
 
+// ------------------------------------------------------------- fp32 SGEMM
+constexpr int SG_BK = 8;                       // k depth of a slice
+constexpr int SG_LDA = BM + 4;                 // As row: 132 floats (bank skew)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (source size 0).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// VEC: K and N are multiples of 4 and A, B, C 16-byte aligned.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+             int m, int n, int k) {
+  __shared__ __align__(16) float As[2][SG_BK][SG_LDA];   // A slice, k-major: As[kk][row]
+  __shared__ __align__(16) float Bs[2][SG_BK][BN];       // B slice: Bs[kk][col]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int row_t = (warp / 4) * 64 + (lane / 4) * 4;    // + {0..3}, + 32 + {0..3}
+  const int col_t = (warp % 4) * 32 + (lane % 4) * 4;    // + {0..3}, + 16 + {0..3}
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const size_t batch = blockIdx.z;
+  a += batch * static_cast<size_t>(m) * k;
+  b += batch * static_cast<size_t>(k) * n;
+  c += batch * static_cast<size_t>(m) * n;
+
+  // This thread's share of a slice: A row a_r, k a_k..a_k+3 (a warp takes
+  // 16 rows x 8 k, whole 32-byte sectors); B k row b_k, columns b_c..b_c+3.
+  const int a_r = tid / 2;
+  const int a_k = (tid % 2) * 4;
+  const int b_k = tid / 32;
+  const int b_c = (tid % 32) * 4;
+  const int gb_c = col0 + b_c;
+
+  float ra[4];                               // A in flight
+  auto fetch = [&](int k0) {                 // slice at k0: A -> registers, B -> cp.async
+    const int ga_r = row0 + a_r;
+    const float* a_row = a + static_cast<size_t>(ga_r < m ? ga_r : 0) * k;
+    const int gk = k0 + a_k;
+    if constexpr (VEC) {
+      const bool ok = ga_r < m && gk < k;
+      const float4 v = ok ? *reinterpret_cast<const float4*>(a_row + gk)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      ra[0] = v.x; ra[1] = v.y; ra[2] = v.z; ra[3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ra[i] = (ga_r < m && gk + i < k) ? a_row[gk + i] : 0.f;
+    }
+    const int gbk = k0 + b_k;
+    float* dst = &Bs[(k0 / SG_BK) & 1][b_k][b_c];
+    if constexpr (VEC) {
+      const bool ok = gbk < k && gb_c < n;
+      cp_async_16(dst, b + (ok ? static_cast<size_t>(gbk) * n + gb_c : 0), ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = gbk < k && gb_c + i < n;
+        cp_async_4(dst + i, b + (ok ? static_cast<size_t>(gbk) * n + gb_c + i : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+  auto stash = [&](int stage) {              // registers -> shared
+#pragma unroll
+    for (int i = 0; i < 4; ++i) As[stage][a_k + i][a_r] = ra[i];
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int nk = (k + SG_BK - 1) / SG_BK;
+  fetch(0);
+  stash(0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int cur = t & 1;
+    const bool more = t + 1 < nk;
+    if (more) fetch((t + 1) * SG_BK);        // lands while this slice is multiplied
+#pragma unroll
+    for (int kk = 0; kk < SG_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][row_t]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][row_t + 32]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][col_t]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][col_t + 16]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) stash(cur ^ 1);
+    cp_async_wait_all();
+    __syncthreads();   // slice t+1 is in; every thread is done with slice t
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = row0 + row_t + (i < 4 ? i : 28 + i);
+    if (gr >= m) continue;
+    float* crow = c + static_cast<size_t>(gr) * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gc = col0 + col_t + 16 * h;
+      if constexpr (VEC) {
+        if (gc < n) {
+          *reinterpret_cast<float4*>(crow + gc) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gc + j < n) crow[gc + j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+int launch_f32(const float* a, const float* b, float* c, int batch, int m, int n, int k,
+               cudaStream_t stream) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (k % 4 == 0 && n % 4 == 0 && aligned(a) && aligned(b) && aligned(c)) {
+    sgemm_kernel<true><<<grid, THREADS, 0, stream>>>(a, b, c, m, n, k);
+  } else {
+    sgemm_kernel<false><<<grid, THREADS, 0, stream>>>(a, b, c, m, n, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ bf16 (simple)
 template <typename T>
 int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
            void* stream) {
@@ -140,7 +324,8 @@ int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k
 // after the launch; 0 means the launch was accepted.
 extern "C" int mapple_matmul_f32(const void* a, const void* b, void* c, int batch, int m,
                                  int n, int k, void* stream) {
-  return launch<float>(a, b, c, batch, m, n, k, stream);
+  return launch_f32(static_cast<const float*>(a), static_cast<const float*>(b),
+                    static_cast<float*>(c), batch, m, n, k, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mapple_matmul_bf16(const void* a, const void* b, void* c, int batch, int m,

@@ -1,4 +1,5 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the Hopper flash-attention kernels: ``csrc/flash_attention.cu``
+(fp32, CUDA cores) and ``csrc/flash_attention_bf16.cu`` (bf16, tensor cores).
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas``: causal
 (optionally sliding-window) softmax attention with an fp32 online
@@ -24,6 +25,22 @@ _GRID_Y_MAX = 65535            # one grid row per (batch, head)
 
 def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def bf16_ready(x: torch.Tensor) -> bool:
+    """Whether the bf16 kernel can read ``x`` in place: its 16-byte
+    ``cp.async`` copies and ``ldmatrix`` rows need the last dim contiguous,
+    the data pointer 16-byte aligned and the batch, seq and head strides
+    multiples of 8 elements."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in x.stride()[:-1]))
+
+
+def bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if the bf16 kernel can read it in place, else a fresh
+    contiguous copy (a copy, not another route: ``.contiguous()`` would
+    hand back a contiguous view whose data pointer is misaligned)."""
+    return x if bf16_ready(x) else x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -54,7 +71,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if S < 1 or B * H > _GRID_Y_MAX:
         raise ValueError(f"flash_attention kernel shape out of range: "
                          f"{tuple(q.shape)}")
-    q, k, v = (_last_dim_contiguous(x) for x in (q, k, v))
+    fit = bf16_operand if q.dtype == torch.bfloat16 else _last_dim_contiguous
+    q, k, v = (fit(x) for x in (q, k, v))
     scale = float(scale) if scale is not None else d ** -0.5
     out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out)

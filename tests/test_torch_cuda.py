@@ -38,8 +38,18 @@ def card():
     ops.reset_launch_counts()
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 128, 128), (3, 1000, 777, 513),
-                                   (2, 1, 5, 3), (4, 256, 2048, 64)])
+@pytest.mark.parametrize("shape", [
+    (1, 128, 128, 128), (3, 1000, 777, 513), (2, 1, 5, 3), (4, 256, 2048, 64),
+    # the fp32 kernel's slice edges (8-deep slices of 128 x 128 tiles); K and
+    # N multiples of 4 take the float4 path, the others the scalar one
+    (2, 70, 4, 36),             # K below one slice, float4 path
+    (2, 70, 5, 36),             # K below one slice, scalar path
+    (1, 200, 20, 136),          # K not a multiple of the slice, float4 path
+    (1, 200, 13, 136),          # K not a multiple of the slice, scalar path
+    (1, 129, 64, 129),          # M and N one past a tile
+    (2, 129, 64, 132),          # M one past a tile, N one float4 past
+    (8, 2048, 2048, 2048),      # Johnson / COSMA block shape, batch 8
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_matches_plain(card, shape, dtype):
     b, m, k, n = shape
@@ -154,6 +164,16 @@ def _simulable(model, grid) -> bool:
     (1, 77, 2, 2, 16, 0, False),          # not causal
     (1, 130, 2, 1, 32, 40, False),        # not causal, window
     (3, 5, 3, 3, 48, 2, True),            # shorter than one tile
+    # the bf16 kernel's tile edges (64 queries, 64 keys a tile)
+    (2, 63, 4, 2, 64, 0, True),           # S = BQ - 1
+    (2, 64, 4, 2, 64, 0, True),           # S = BQ
+    (2, 65, 4, 2, 64, 0, True),           # S = BQ + 1
+    (1, 129, 6, 2, 64, 0, True),          # S = 2 BK + 1
+    (2, 300, 4, 2, 64, 37, True),         # window ends inside a key tile
+    (1, 512, 4, 1, 64, 128, True),        # window a multiple of BK
+    (2, 257, 4, 2, 64, 64, False),        # not causal, window
+    (2, 256, 4, 2, 16, 0, True),          # d = 16 at S >= 256
+    (1, 320, 4, 2, 128, 100, True),       # d = 128 at S >= 256, window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, B, S, H, Kv, d, window, causal,
@@ -178,6 +198,24 @@ def test_flash_attention_kernel_reads_strided_layout(card):
     out = ops.flash_attention(q, k, v, scale=0.2, window=30)
     expect = ops.flash_attention_plain(q, k, v, scale=0.2, window=30)
     torch.testing.assert_close(out, expect, **TOL[torch.float32])
+
+
+def test_flash_attention_bf16_kernel_copies_misaligned_operands(card):
+    """A bf16 k whose heads start 4 elements into a padded row (pointer
+    not 16-byte aligned, seq stride not a multiple of 8): the wrapper
+    copies it, and the kernel's answer stays right."""
+    B, S, H, Kv, d = 2, 200, 4, 2, 64
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = torch.randn((B, S, H, d), generator=gen, device=card).to(torch.bfloat16)
+    padded = torch.randn((B, S, Kv * d + 4), generator=gen, device=card).to(torch.bfloat16)
+    k = padded[..., 4:].unflatten(-1, (Kv, d))
+    v = torch.randn((B, S, Kv, d), generator=gen, device=card).to(torch.bfloat16)
+    assert not fa_mod.bf16_ready(k) and fa_mod.bf16_ready(q)
+    out = fa_mod.flash_attention_cuda(q, k, v, window=50)
+    expect = ops.flash_attention_plain(q, k, v, window=50)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[torch.bfloat16])
+    assert ops.launch_counts()["flash_attention"] == 1
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(card):

@@ -286,6 +286,27 @@ def test_ops_mamba_scan_matches_jax_ops():
     _close(s, s_j, "float32")
 
 
+def test_flash_bf16_wrapper_copies_only_what_the_kernel_cannot_read():
+    """The bf16 kernel's 16-byte rows: the wrapper keeps an aligned operand
+    (the model layout, and a head slice of it) as it is, and copies one
+    whose data pointer or seq stride is not 16-byte aligned, into an
+    aligned tensor with the same values."""
+    x = torch.randn(2, 40, 3, 64).to(torch.bfloat16)
+    assert fa_mod.bf16_ready(x) and fa_mod.bf16_operand(x) is x
+    heads = x[:, :, 1:]                              # offset of one head: 64 elements
+    assert fa_mod.bf16_ready(heads) and fa_mod.bf16_operand(heads) is heads
+    moved = torch.randn(2 * 40 * 3 * 64 + 4).to(torch.bfloat16)[4:].view(2, 40, 3, 64)
+    padded = torch.randn(2, 40, 3 * 64 + 4).to(torch.bfloat16)[..., :192].unflatten(-1, (3, 64))
+    half = torch.randn(2, 40, 3, 72).to(torch.bfloat16)[..., :64]   # fine: strides of 8
+    for y, ready in ((moved, False), (padded, False), (half, True),
+                     (x.transpose(1, 2), True), (x[..., ::2], False)):
+        assert fa_mod.bf16_ready(y) is ready
+        out = fa_mod.bf16_operand(y)
+        assert (out is y) is ready
+        assert fa_mod.bf16_ready(out) and torch.equal(out, y)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 8
+
+
 def test_lm_kernel_wrappers_refuse_non_cuda_tensors():
     q = torch.ones(1, 8, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
