@@ -8,8 +8,9 @@ NVIDIA H100:
 
 1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
    and prints each kernel function's registers, shared memory and spill
-   bytes from ptxas; a spill in the bf16 flash or fp32 matmul kernels
-   fails the run;
+   bytes from ptxas; a spill in the bf16 flash, fp32 matmul, mamba_scan or
+   wkv6 kernels fails the run; then the recurrence kernels' registers per
+   thread and resident warps per SM as the CUDA runtime reports them;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at the fp32 matmul kernel's slice and
    tile edges (matmul fp32 rtol=atol=1e-4 and bf16 2e-2, the JAX
@@ -41,8 +42,9 @@ NVIDIA H100:
    kernel's tile edges (S one short of, at and one past a 64-row tile,
    windows inside and on a key tile, not causal, d 16 and 128, a
    misaligned operand the wrapper copies); mamba_scan at the
-   hymba prefill (B=4, T=2048, d_inner 3200, state 16) and a ragged one,
-   fp32 (1e-4);
+   hymba prefill (B=4, T=2048, d_inner 3200, state 16), a ragged one and
+   its tile edges (``MAMBA_EDGES``), fp32 (1e-4), timed beside the
+   exponentials' MUFU floor;
 7. drives the LM serving path at hymba-1.5b's full width (32 layers,
    weights from a seeded generator on the card): the prefill step with the
    kernels (B=4, prompt 2048 > the 1024 window), counters set to 0 just
@@ -57,8 +59,9 @@ NVIDIA H100:
    answering 8 requests of prompts 16-128; then smollm-135m's prefill
    (no window) with the kernels against its plain prefill (fp32, 2e-3);
 8. holds wkv6 against its plain version (fp32, rtol=atol=1e-4) at the
-   rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64), at a ragged T
-   and at head sizes 32 and 16, and times it at the prefill shape;
+   rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64), at a ragged T,
+   at head sizes 32 and 16 and at its tile edges (``WKV6_EDGES``), and
+   times it at the prefill shape;
 9. drives RWKV-6 serving at rwkv6-3b's full width (32 layers, d_model
    2560, d_ff 8960, vocabulary 65536; 3073313280 parameters drawn from a
    seed, fp32 on the card, after hymba's are freed): the prefill step with
@@ -143,7 +146,18 @@ FLASH_EDGES = [(2, 63, 4, 2, 64, 0, True, False), (2, 64, 4, 2, 64, 0, True, Fal
                (1, 320, 4, 2, 128, 100, True, False), (2, 200, 4, 2, 64, 50, True, True)]
 # Sources whose kernel functions must not spill (ptxas -v), and the
 # functions of each that the rule covers.
-NO_SPILL = {"flash_attention_bf16.cu": "flash_bf16_kernel", "matmul.cu": "sgemm_kernel"}
+NO_SPILL = {"flash_attention_bf16.cu": "flash_bf16_kernel", "matmul.cu": "sgemm_kernel",
+            "mamba_scan.cu": "mamba_scan_kernel", "wkv6.cu": "wkv6_kernel"}
+# The recurrence kernels' tile edges: mamba_scan (B, T, di, n) with a ragged
+# last 32-channel block, T off the 32-step chunk, n = 4 and 32, and
+# di % 4 != 0 (4-byte copies); wkv6 (B, T, H, N) with T short of, one past
+# and ragged against the 16-step chunk, at N = 64, 32 and 16.
+MAMBA_EDGES = [(2, 100, 200, 16), (2, 45, 96, 4), (2, 50, 100, 32), (1, 77, 70, 32)]
+WKV6_EDGES = [(2, 15, 3, 64), (1, 17, 2, 64), (2, 17, 3, 32), (3, 47, 2, 16), (1, 2, 5, 32),
+              (1, 1, 3, 16)]
+# The special-function unit's exponentials: 16 MUFU.EX2 results a clock
+# on each of the 132 SMs at the 1.98 GHz boost clock (published figures).
+MUFU_EX2_PER_S = 16 * 132 * 1.98e9
 # The LM serving path: hymba-1.5b's prefill shape and the checks' limits.
 LM_ARCH = "hymba-1.5b"
 LM_BATCH, LM_PROMPT = 4, 2048
@@ -238,6 +252,18 @@ def ptxas_report(log: str) -> None:
             spills = 0
     if failures:
         fail("; ".join(failures))
+
+
+def occupancy_report() -> None:
+    """Registers per thread and resident warps per SM of the recurrence
+    kernels at their main paths' sizes, as the CUDA runtime reports them."""
+    from repro_torch.kernels import mamba_scan as ms_mod
+    from repro_torch.kernels import wkv6 as wkv_mod
+
+    for name, (regs, warps) in (("mamba_scan n=16", ms_mod.occupancy(16)),
+                                (f"wkv6 N={RWKV_HEAD}", wkv_mod.occupancy(RWKV_HEAD))):
+        print(f"  occupancy: {name:16s} {regs} registers a thread, {warps} resident "
+              f"warps an SM")
 
 
 def app_shapes():
@@ -735,9 +761,9 @@ def lm_kernel_phase() -> dict:
 
     fa_err = max(fa_err, flash_edges_phase(gen))
 
-    # mamba_scan: hymba's prefill shape (timed) and a ragged one.
+    # mamba_scan: hymba's prefill shape (timed), a ragged one, the tile edges.
     ms_err, ms_row = 0.0, None
-    for B, T, di, n in ((LM_BATCH, LM_PROMPT, 3200, 16), (2, 100, 24, 8)):
+    for B, T, di, n in ((LM_BATCH, LM_PROMPT, 3200, 16), (2, 100, 24, 8), *MAMBA_EDGES):
         xs = 0.5 * torch.randn((B, T, di), generator=gen, device="cuda")
         dtt = 0.2 * torch.nn.functional.softplus(
             torch.randn((B, T, di), generator=gen, device="cuda"))
@@ -759,8 +785,11 @@ def lm_kernel_phase() -> dict:
         elems = B * T * di * n
         nbytes = 4.0 * (3 * B * T * di + 2 * B * T * n + di * n + B * di * n)
         bnd, by = bound_ms(7.0 * elems + B * T * di, nbytes, "float32")
-        print(f"time   {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bnd:.5f} ms ({by}); no single PyTorch call computes the scan")
+        exp_ms = elems / MUFU_EX2_PER_S * 1e3
+        print(f"time   {tag}: kernel {ms:.4f} ms ({bnd / ms:.1%} of bound), plain "
+              f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}); one exponential an element "
+              f"takes {exp_ms:.5f} ms on the MUFU ({exp_ms / ms:.1%} of the kernel's "
+              f"time); no single PyTorch call computes the scan")
         ms_row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
                   "bound_by": by, "shape": [B, T, di, n], "dtype": "float32"}
     main_fa = fa_rows[(25, "bfloat16")]
@@ -796,7 +825,7 @@ def wkv6_kernel_phase() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     shapes = [(LM_BATCH, LM_PROMPT, RWKV_HEADS, RWKV_HEAD), (2, 1000, RWKV_HEADS, RWKV_HEAD),
-              (3, 333, 8, 32), (2, 512, 8, 16)]
+              (3, 333, 8, 32), (2, 512, 8, 16), *WKV6_EDGES]
     err_all, row = 0.0, None
     for B, T, H, N in shapes:
         r, k, v, w, u = _wkv6_inputs(gen, B, T, H, N)
@@ -820,8 +849,9 @@ def wkv6_kernel_phase() -> dict:
         # state update 3N^2; the bonus term is O(N)).
         nbytes = 4.0 * (5 * B * T * H * N + H * N + B * H * N * N)
         bnd, by = bound_ms(5.0 * N * N * B * H * T, nbytes, "float32")
-        print(f"time   {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bnd:.5f} ms ({by}); no single PyTorch call computes the recurrence")
+        print(f"time   {tag}: kernel {ms:.4f} ms ({bnd / ms:.1%} of bound), plain "
+              f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}); no single PyTorch call "
+              f"computes the recurrence")
         row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
                "bound_by": by, "shape": [B, T, H, N], "dtype": "float32"}
     return {"wkv6": {**row, "max_abs_err": err_all}}
@@ -1053,6 +1083,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.seconds:.2f} s) -> {lib.path.relative_to(ROOT)}")
     ptxas_report(lib.log)
+    occupancy_report()
 
     mm_shapes, stencil_block, stencil_field = app_shapes()
     rows = parity_and_timing(mm_shapes, stencil_block, stencil_field)

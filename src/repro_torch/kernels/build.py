@@ -48,6 +48,9 @@ SIGNATURES = {
     # r, k, v, w, u, y, state, strides (12 x int64 on the host), B, T, H, N,
     # stream
     "mapple_wkv6_f32": (_VP,) * 8 + (_I,) * 4 + (_VP,),
+    # state or head size, then out: registers per thread, resident warps per SM
+    "mapple_mamba_scan_occupancy": (_I, _VP, _VP),
+    "mapple_wkv6_occupancy": (_I, _VP, _VP),
 }
 
 

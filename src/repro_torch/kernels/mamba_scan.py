@@ -8,6 +8,8 @@ the final state (B,di,n).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -55,3 +57,13 @@ def mamba_scan_cuda(xs: torch.Tensor, dt: torch.Tensor, Bs: torch.Tensor,
 
 
 mamba_scan_cuda.launches = 0
+
+
+def occupancy(n: int) -> tuple[int, int]:
+    """Registers per thread and resident warps per SM of the kernel that a
+    launch at state size ``n`` runs, as the CUDA runtime reports them."""
+    regs, warps = ctypes.c_int(), ctypes.c_int()
+    lib = build.load()
+    err = lib.lib.mapple_mamba_scan_occupancy(n, ctypes.byref(regs), ctypes.byref(warps))
+    build.check(lib, err, "mamba_scan occupancy query")
+    return regs.value, warps.value

@@ -63,3 +63,13 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv6_cuda.launches = 0
+
+
+def occupancy(N: int) -> tuple[int, int]:
+    """Registers per thread and resident warps per SM of the kernel that a
+    launch at head size ``N`` runs, as the CUDA runtime reports them."""
+    regs, warps = ctypes.c_int(), ctypes.c_int()
+    lib = build.load()
+    err = lib.lib.mapple_wkv6_occupancy(N, ctypes.byref(regs), ctypes.byref(warps))
+    build.check(lib, err, "wkv6 occupancy query")
+    return regs.value, warps.value

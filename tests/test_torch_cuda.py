@@ -231,7 +231,12 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
 
 # --------------------------------------------------------------- mamba scan
 @pytest.mark.parametrize("B,T,di,n", [(4, 2048, 3200, 16), (2, 100, 24, 8),
-                                      (1, 33, 7, 4), (3, 64, 130, 32)])
+                                      (1, 33, 7, 4), (3, 64, 130, 32),
+                                      # a ragged last 32-channel block, T not a
+                                      # multiple of the 32-step chunk, and
+                                      # di % 4 != 0 (4-byte copies)
+                                      (2, 100, 200, 16), (2, 45, 96, 4),
+                                      (2, 50, 100, 32), (1, 77, 70, 32)])
 def test_mamba_scan_kernel_matches_plain(card, B, T, di, n):
     gen = torch.Generator(device=card).manual_seed(T)
     xs = 0.5 * torch.randn((B, T, di), generator=gen, device=card)
@@ -248,6 +253,30 @@ def test_mamba_scan_kernel_matches_plain(card, B, T, di, n):
     assert ops.launch_counts()["mamba_scan"] == 1
 
 
+def test_mamba_scan_kernel_reads_misaligned_rows(card):
+    """Contiguous inputs that start 4 bytes past a 16-byte boundary take the
+    kernel's 4-byte copies."""
+    B, T, di, n = 2, 40, 128, 16
+    gen = torch.Generator(device=card).manual_seed(7)
+    xs = 0.5 * torch.randn((B, T, di), generator=gen, device=card)
+    dt = 0.2 * torch.nn.functional.softplus(
+        torch.randn((B, T, di), generator=gen, device=card))
+    Bs = 0.5 * torch.randn((B, T, n), generator=gen, device=card)
+    Cs = 0.5 * torch.randn((B, T, n), generator=gen, device=card)
+    A = -torch.exp(0.3 * torch.randn((di, n), generator=gen, device=card))
+
+    def shifted(x):
+        out = torch.empty(1 + x.numel(), device=card)[1:].view(x.shape)
+        return out.copy_(x)
+
+    xs2, dt2, Bs2, Cs2 = (shifted(x) for x in (xs, dt, Bs, Cs))
+    assert xs2.data_ptr() % 16 == 4 and xs2.is_contiguous()
+    y, s = ms_mod.mamba_scan_cuda(xs2, dt2, Bs2, Cs2, A)
+    y_ref, s_ref = ref.mamba_scan(xs, dt, Bs, Cs, A)
+    torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
+    torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
+
+
 # --------------------------------------------------------------------- wkv6
 def _wkv6_inputs(card, B, T, H, N, seed):
     """Drawn as tests/test_kernels.py::test_wkv6_shapes draws them."""
@@ -262,7 +291,12 @@ def _wkv6_inputs(card, B, T, H, N, seed):
 @pytest.mark.parametrize("B,T,H,N", [(4, 2048, 40, 64),    # rwkv6-3b prefill
                                      (2, 1000, 3, 64),     # ragged T
                                      (1, 1, 2, 64), (3, 33, 5, 32), (2, 100, 4, 16),
-                                     (1, 31, 1, 16)])
+                                     (1, 31, 1, 16),
+                                     # T short of, one past and ragged against the
+                                     # 16-step chunk at N = 64, 32 and 16 (one block
+                                     # a head at 32 and 16)
+                                     (2, 15, 3, 64), (1, 17, 2, 64), (2, 17, 3, 32),
+                                     (3, 47, 2, 16), (1, 2, 5, 32), (1, 1, 3, 16)])
 def test_wkv6_kernel_matches_plain(card, B, T, H, N):
     r, k, v, w, u = _wkv6_inputs(card, B, T, H, N, seed=T)
     y, s = wkv_mod.wkv6_cuda(r, k, v, w, u)
@@ -282,6 +316,20 @@ def test_wkv6_kernel_reads_strided_layout(card):
     r2, k2, v2 = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (r, k, v))
     w2 = torch.cat([w, w], dim=-1)[..., :N]
     y, s = ops.wkv6(r2, k2, v2, w2, u)
+    y_ref, s_ref = ops.wkv6_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
+    torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("N", [64, 32, 16])
+def test_wkv6_kernel_reads_misaligned_rows(card, N):
+    """Rows that start 4 bytes past a 16-byte boundary take the kernel's
+    4-byte copies."""
+    B, T, H = 2, 37, 3
+    r, k, v, w, u = _wkv6_inputs(card, B, T, H, N, seed=6)
+    r2, k2, v2, w2 = (torch.cat([x[..., :1], x], dim=-1)[..., 1:] for x in (r, k, v, w))
+    assert r2.data_ptr() % 16 == 4
+    y, s = wkv_mod.wkv6_cuda(r2, k2, v2, w2, u)
     y_ref, s_ref = ops.wkv6_plain(r, k, v, w, u)
     torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
     torch.testing.assert_close(s, s_ref, **TOL[torch.float32])

@@ -170,6 +170,30 @@ def test_decoder_logits_match_jax(arch, S):
     _close(tm.last_logits(tp, tin), jm.last_logits(jp, jin, remat=False), FWD)
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "pixtral-12b"])
+def test_granite_and_pixtral_match_jax(arch):
+    """Tied embeddings (granite) and the stub vision frontend with rope
+    theta 1e6 (pixtral) at the reduced widths: logits and last logits
+    within FWD of repro's, then teacher-forced decode steps within FWD."""
+    jm, jp, tm, tp = _pair(arch)
+    jin, tin = _inputs(tm.cfg, 2, 32)
+    jl, _ = jm.logits(jp, jin, remat=False)
+    tl, _ = tm.logits(tp, tin)
+    assert tl.shape == jl.shape
+    _close(tl, jl, FWD)
+    _close(tm.last_logits(tp, tin), jm.last_logits(jp, jin, remat=False), FWD)
+    B, S = 2, 6
+    jin, tin = _inputs(tm.cfg, B, S, seed=1)
+    jdecode = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(B, 16)
+    tcache = tm.init_cache(B, 16, device="cpu")
+    step = make_serve_step(tm)
+    for t in range(S):
+        jl, jcache = jdecode(jp, jcache, jnp.int32(t), jin[:, t:t + 1])
+        tl, tcache = step(tp, tcache, t, tin[:, t:t + 1])
+        _close(tl, jl, FWD)
+
+
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_hymba_logits_match_jax(use_kernel):
     """S = 128 exceeds the reduced window (64), so the SWA mask bites;
