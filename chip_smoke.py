@@ -17,7 +17,8 @@ NVIDIA H100:
    package's kernel tolerances; stencil fp32 1e-4; segment_rowmax float64
    1e-12 and float32 1e-4), and times both, with one library call beside
    each as a yardstick where one PyTorch call computes the same function,
-   and the achieved TFLOP/s and share of the bound;
+   and the achieved TFLOP/s and share of the bound (the bf16 matmul, which
+   no main path runs, at the apps' block shape beside ``torch.matmul``);
 3. drives the execute path: all nine paper apps through ``repro_torch.apps``
    at the registry's own problem sizes and default processor counts, each
    checked against its single-device oracle on the card, with the kernels'
@@ -33,7 +34,25 @@ NVIDIA H100:
    engine on the card (launch counters set to 0 just before, read just
    after) and once on the NumPy engine; the winners must be the same and
    the placed seconds agree within 1e-6 relative;
-6. holds the LM kernels against their plain versions at the serving
+6. drives the fault remapper at 4096 processors: each app's stale plan
+   (its torch winner from 5) remapped warm and cold under the two
+   scenarios of ``benchmarks/resilience_bench.py`` (processor nprocs-1
+   dead; port 0 of level 0 slowed by 2.0) on the torch engine on the card,
+   each held to the same remap on the NumPy engine (sub-machine, winner,
+   placed seconds within 1e-6, no work on a dead processor, no worse than
+   the stale plan), with warm and cold wall times per engine;
+7. drives the mapping service: 48 requests drawn as the service CLI's
+   demo trace draws them over the nine apps at 1024 and 4096 processors,
+   then two node-death remaps, through a torch-engine ``MappingService``
+   on the card, held to a NumPy-engine service; a second service on the
+   same directory answering every tune from the plan cache; two workers
+   giving the one-worker plans; ``ServiceStats`` (hits, p50, p95); and
+   ``python -m repro_torch.serving.serve --demo 20 --backend torch``;
+8. drives the runner's ``--warm-start-from`` at 4096 processors on the
+   torch engine from the service's plan cache: the tune phase's winners;
+   phases 5-8 each with the launch counters set to 0 just before and read
+   just after, failing on no segment_rowmax launch;
+9. holds the LM kernels against their plain versions at the serving
    path's shapes and times them: flash_attention at the hymba-1.5b
    prefill (B=4, S=2048, 25 heads over 5 KV heads, d=64, window 1024),
    the smollm-135m prefill (9 over 3 heads, no window) and a ragged
@@ -45,7 +64,7 @@ NVIDIA H100:
    hymba prefill (B=4, T=2048, d_inner 3200, state 16), a ragged one and
    its tile edges (``MAMBA_EDGES``), fp32 (1e-4), timed beside the
    exponentials' MUFU floor;
-7. drives the LM serving path at hymba-1.5b's full width (32 layers,
+10. drives the LM serving path at hymba-1.5b's full width (32 layers,
    weights from a seeded generator on the card): the prefill step with the
    kernels (B=4, prompt 2048 > the 1024 window), counters set to 0 just
    before and read just after (32 launches of each kernel); in fp32 its
@@ -58,11 +77,11 @@ NVIDIA H100:
    (batch 4, prompt 32, gen 16) and a 4-slot ``ContinuousBatcher``
    answering 8 requests of prompts 16-128; then smollm-135m's prefill
    (no window) with the kernels against its plain prefill (fp32, 2e-3);
-8. holds wkv6 against its plain version (fp32, rtol=atol=1e-4) at the
+11. holds wkv6 against its plain version (fp32, rtol=atol=1e-4) at the
    rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64), at a ragged T,
    at head sizes 32 and 16 and at its tile edges (``WKV6_EDGES``), and
    times it at the prefill shape;
-9. drives RWKV-6 serving at rwkv6-3b's full width (32 layers, d_model
+12. drives RWKV-6 serving at rwkv6-3b's full width (32 layers, d_model
    2560, d_ff 8960, vocabulary 65536; 3073313280 parameters drawn from a
    seed, fp32 on the card, after hymba's are freed): the prefill step with
    the wkv6 kernel (B=4, prompt 2048), counters set to 0 just before and
@@ -73,8 +92,9 @@ NVIDIA H100:
    ``decode_step`` (the scan from the carried state) against the kernel
    prefill's last logits (fp32, 2e-3); the serving CLI (batch 4, prompt
    32, gen 16) and a 4-slot ``ContinuousBatcher`` answering 8 requests;
-10. prints one JSON ``kernels`` line (matmul and stencil launches from the
-   execute path, segment_rowmax launches from the tune path,
+13. prints one JSON ``kernels`` line (matmul and stencil launches from the
+   execute path, segment_rowmax launches from the tune path and, by path,
+   from phases 5-8,
    flash_attention and mamba_scan launches from the hymba prefill, wkv6
    launches from the rwkv6-3b prefill), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
@@ -116,6 +136,21 @@ PRICER_NUMPY_ROWS = 8
 PRICER_RTOL = 1e-6
 KERNEL_VS_PLAIN_RTOL = 1e-12
 SCATTER_APP = "summa"      # the largest schedule (516096 transfers)
+# The fault remapper and the mapping service at the tuner's scale: the
+# contended port's slowdown (benchmarks/resilience_bench.py's), the slack
+# of "no worse than the stale plan" (its gate), float64 round-off below
+# which two NumPy placed seconds tie, and the service's trace: requests,
+# drawn as serve.demo_trace draws them over the nine apps at these scales.
+REMAP_CONTENTION = 2.0
+# The apps whose cold remaps are also run on the NumPy engine, to hold the
+# torch engine's to them (every warm remap is held): all nine took 58 s on
+# the host, 50 of it summa's and pumma's (PERF.md §6); these three, a 3-D
+# space and two 2-D ones, took 4 s.
+REMAP_NUMPY_COLD_APPS = ("johnson", "stencil", "pennant")
+STEP_SLACK = 1e-9
+WINNER_TIE_RTOL = 1e-12
+SERVICE_REQUESTS = 48
+SERVICE_PROCS = (1024, 4096)
 KERNELS = {
     "matmul": {"source": "src/repro_torch/kernels/csrc/matmul.cu",
                "replaces": "src/repro/kernels/matmul.py:39"},
@@ -324,23 +359,28 @@ def parity_and_timing(mm_shapes, stencil_block, stencil_field) -> dict:
                           mm_mod.matmul_cuda(a, w), ref.matmul(a, w), dt)
         print(f"parity matmul {dt:8s} batch={b} {m}x{k}x{n}: "
               f"max_abs_err={err:.3e}")
-        if dt != "float32" or (b, m, k, n) not in mm_shapes:
+        # Timed: fp32 at every app block shape; bf16 (which no main path
+        # runs) at the first, the apps' 4 x 2048^3.
+        if (b, m, k, n) not in mm_shapes[:1 if dt == "bfloat16" else None]:
             continue
         ref.no_tf32()
         ms = time_ms(lambda: mm_mod.matmul_cuda(a, w), reps=10)
         plain = time_ms(lambda: ref.matmul(a, w), reps=10)
         lib = time_ms(lambda: torch.matmul(a, w), reps=10)
         flops = 2.0 * b * m * n * k
-        bnd, by = bound_ms(flops, 4.0 * b * (m * k + k * n + m * n), dt)
+        bnd, by = bound_ms(flops, a.element_size() * b * (m * k + k * n + m * n), dt)
         print(f"time   matmul {dt:8s} batch={b} {m}x{k}x{n}: kernel {ms:.4f} ms "
               f"({tflops(flops, ms)}, {bnd / ms:.1%} of bound), plain {plain:.4f} ms, "
               f"torch.matmul {lib:.4f} ms ({tflops(flops, lib)}); kernel / torch.matmul "
-              f"{ms / lib:.3f} (target <= {MM_TARGET})")
+              f"{ms / lib:.3f}" + (f" (target <= {MM_TARGET})" if dt == "float32" else ""))
         if (b, m, k, n) != mm_shapes[0]:
             continue
-        rows["matmul"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                          "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
-                          "shape": [b, m, k, n], "dtype": dt}
+        row = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+               "bound_by": by, "max_abs_err": err, "shape": [b, m, k, n], "dtype": dt}
+        if dt == "float32":
+            rows["matmul"] = row
+        else:
+            rows["matmul"]["bfloat16"] = row
 
     # ---- stencil: the edge-replicate step on the app's field, and the
     # interior sweep on the app's halo-padded rank blocks (timed).
@@ -592,12 +632,15 @@ def scatter_check(eng, kern, rng) -> list[str]:
             [f"scatter pricing vs NumPy engine {rel:.2e} > {PRICER_RTOL}"])
 
 
-def tune_phase() -> int:
+def tune_phase(work: Path) -> tuple[int, dict, float]:
     """The tune path: ``apps.run.tune`` over the nine apps at 4096 procs,
     time domain, on the torch engine on the card (counted) and on the
     NumPy engine, each from cold schedule caches; same winners, placed
-    seconds within 1e-6 relative. Returns segment_rowmax's launches in
-    the torch run."""
+    seconds within 1e-6 relative. The torch tune stores its winners in an
+    empty plan cache under ``work/stale`` (``warm_start_from``: no seeds,
+    so the tune is the cold one), the stale plans of the remap phase.
+    Returns segment_rowmax's launches in the torch run, the torch rows by
+    app, and the torch tune's wall time."""
     from repro_torch import apps
     from repro_torch.apps import run as runner
     from repro_torch.kernels import ops
@@ -605,23 +648,23 @@ def tune_phase() -> int:
 
     selection = list(apps.iter_apps())
     results, walls = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
-        for backend in ("torch", "numpy"):
-            path = str(Path(tmp) / f"{backend}.json")
-            clear_caches()        # both tunes build their schedules cold
-            if backend == "torch":
-                ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            rc = runner.tune(selection, PRICER_PROCS, report=lambda line: None,
-                             json_path=path, time_domain=True, backend=backend,
-                             device="cuda")
-            walls[backend] = time.perf_counter() - t0
-            if backend == "torch":
-                launches = ops.launch_counts()["segment_rowmax"]
-            if rc != 0:
-                fail(f"the {backend} tune at {PRICER_PROCS} procs exited {rc}")
-            results[backend] = {row["app"]: row for row in
-                                json.loads(Path(path).read_text())["apps"]}
+    for backend in ("torch", "numpy"):
+        path = str(work / f"{backend}.json")
+        clear_caches()        # both tunes build their schedules cold
+        if backend == "torch":
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = runner.tune(selection, PRICER_PROCS, report=lambda line: None,
+                         json_path=path, time_domain=True, backend=backend,
+                         device="cuda",
+                         warm_start_from=str(work / "stale") if backend == "torch" else None)
+        walls[backend] = time.perf_counter() - t0
+        if backend == "torch":
+            launches = ops.launch_counts()["segment_rowmax"]
+        if rc != 0:
+            fail(f"the {backend} tune at {PRICER_PROCS} procs exited {rc}")
+        results[backend] = {row["app"]: row for row in
+                            json.loads(Path(path).read_text())["apps"]}
     failures = []
     print(f"{'app':10s} {'winner (torch)':34s} {'placed_s':>12s} {'rel':>9s} same")
     for name, row in results["numpy"].items():
@@ -646,6 +689,329 @@ def tune_phase() -> int:
           f"segment_rowmax launches in the torch tune: {launches}")
     if launches == 0:
         failures.append("the torch tune never launched segment_rowmax")
+    if any(row["warm_seeds"] for row in results["torch"].values()):
+        failures.append("the torch tune took warm seeds from an empty plan cache")
+    if failures:
+        fail("; ".join(failures))
+    return launches, results["torch"], walls["torch"]
+
+
+def _leader_costs(leaderboard) -> dict:
+    """A leaderboard's placed seconds by candidate (``row()`` dicts or
+    ``ScoredCandidate``\\ s)."""
+    rows = [s if isinstance(s, dict) else s.row() for s in leaderboard]
+    return {r["candidate"]: r["placed_cost"] for r in rows}
+
+
+def _hold_winner(what: str, mine: str, mine_board, ref: str, ref_board) -> list[str]:
+    """A search's winner against a reference search's (the NumPy engine's,
+    or an earlier run's): the same candidate, or one whose reference placed
+    seconds tie the reference winner's (to float64 round-off,
+    ``WINNER_TIE_RTOL``). Placed seconds within the pricer's 1e-6 rank by
+    rank (so a leaderboard may end on another of candidates that tie at
+    its cut) and candidate by candidate."""
+    costs, theirs = _leader_costs(mine_board), _leader_costs(ref_board)
+    failures = []
+    if mine != ref:
+        best = theirs[ref]
+        tied = {c for c, v in theirs.items() if v is not None and best is not None
+                and abs(v - best) <= WINNER_TIE_RTOL * abs(best)}
+        print(f"  {what}: winner {mine}, reference {ref}; reference ties "
+              f"{sorted(tied)}")
+        if mine not in tied:
+            failures.append(f"{what}: winner {mine}, reference {ref}")
+    if len(costs) != len(theirs):
+        failures.append(f"{what}: leaderboards of {len(costs)} and {len(theirs)}")
+    pairs = [(costs[c], theirs[c]) for c in costs if c in theirs]
+    pairs += list(zip(costs.values(), theirs.values()))
+    pairs = [(a, b) for a, b in pairs if a is not None and b is not None]
+    rel = _max_rel([a for a, _ in pairs], [b for _, b in pairs])
+    if rel > PRICER_RTOL:
+        failures.append(f"{what}: placed seconds differ by {rel:.2e}")
+    return failures
+
+
+def _scenarios(spec) -> dict:
+    """The two failure scenarios of benchmarks/resilience_bench.py (the
+    first of each twin): processor ``nprocs-1`` dead, and port 0 of
+    level 0 (level 1 where the machine's first dimension is 1) slowed by
+    ``REMAP_CONTENTION``."""
+    from repro_torch.core.machine import DegradedMachine
+
+    level = 0 if int(spec.shape[0]) >= 2 else 1
+    return {"node-death": DegradedMachine.fail_procs(spec, [spec.nprocs - 1]),
+            "contention": DegradedMachine.contend(spec, level, {0: REMAP_CONTENTION})}
+
+
+def remap_phase(work: Path) -> int:
+    """The fault remapper at 4096 procs: each app's stale plan (the tune
+    phase's torch winner) remapped warm and cold under both scenarios on
+    the torch engine on the card, with no work on a dead processor and
+    the remapped degraded step time no worse than the stale plan's; each
+    warm remap, and the cold ones of ``REMAP_NUMPY_COLD_APPS``, held to
+    the same remap on the NumPy engine: the same sub-machine shape, the
+    same winner, placed seconds within 1e-6. Returns segment_rowmax's
+    launches in the phase."""
+    import numpy as np
+
+    from repro_torch import apps
+    from repro_torch.kernels import ops
+    from repro_torch.search.remap import remap_plan
+    from repro_torch.serving.mapsvc import plan_key_for
+    from repro_torch.serving.plan_cache import PlanCache
+    from repro_torch.sim.collectives import clear_caches
+    from repro_torch.sim.cost import spec_for, time_tuned_app
+
+    stale_plans = PlanCache(work / "stale" / "plans")
+    walls = {(e, m): 0.0 for e in ("batched-torch", "batched") for m in ("warm", "cold")}
+    failures = []
+    print(f"{'app':10s} {'scenario':10s} {'sub':>9s} {'winner (torch)':30s} "
+          f"{'degraded_s':>12s} {'stale_s':>12s} {'torch warm/cold s':>18s} "
+          f"{'numpy warm/cold s':>18s}")
+    ops.reset_launch_counts()
+    for app in apps.iter_apps():
+        if app.search_space is None or not app.search_space.grids(PRICER_PROCS):
+            print(f"{app.name:10s} skipped: no grid of its search space at "
+                  f"{PRICER_PROCS} procs")
+            continue
+        tuned = time_tuned_app(app, engine="batched-torch", device="cuda")
+        n, key, _ = plan_key_for(tuned, PRICER_PROCS, engine="batched-torch")
+        stale = stale_plans.get(key)
+        if stale is None:
+            failures.append(f"{app.name}: no stale plan from the tune phase")
+            continue
+        spec = spec_for(app.machine_shape(n))
+        for scenario, degraded in _scenarios(spec).items():
+            res, secs = {}, {}
+            for engine in ("batched-torch", "batched"):
+                clear_caches()     # each engine's pair starts from cold schedules
+                for mode in ("warm", "cold"):
+                    if (engine, mode) == ("batched", "cold") \
+                            and app.name not in REMAP_NUMPY_COLD_APPS:
+                        continue
+                    t0 = time.perf_counter()
+                    res[engine, mode] = remap_plan(app, stale, degraded, mode=mode,
+                                                   engine=engine, procs=n, device="cuda")
+                    secs[engine, mode] = time.perf_counter() - t0
+                    walls[engine, mode] += secs[engine, mode]
+            dead = set(degraded.dead_procs)
+            for mode in ("warm", "cold"):
+                mine, ref = res["batched-torch", mode], res.get(("batched", mode))
+                what = f"{app.name} {scenario} {mode}"
+                if dead & {int(p) for p in mine.placement.reshape(-1)}:
+                    failures.append(f"{what}: work placed on a dead processor")
+                if not (np.isfinite(mine.degraded_step_s)
+                        and mine.degraded_step_s <= mine.stale_step_s * (1 + STEP_SLACK)):
+                    failures.append(f"{what}: degraded step {mine.degraded_step_s:.6e} s "
+                                    f"worse than the stale plan's {mine.stale_step_s:.6e} s")
+                if ref is None:
+                    continue
+                if mine.sub_shape != ref.sub_shape:
+                    failures.append(f"{what}: sub-machine {mine.sub_shape} on torch, "
+                                    f"{ref.sub_shape} on NumPy")
+                failures += _hold_winner(what, mine.report.best.candidate.describe(),
+                                         mine.report.leaderboard,
+                                         ref.report.best.candidate.describe(),
+                                         ref.report.leaderboard)
+                if _max_rel([mine.degraded_step_s], [ref.degraded_step_s]) > PRICER_RTOL:
+                    failures.append(f"{what}: degraded step {mine.degraded_step_s:.6e} s on "
+                                    f"torch, {ref.degraded_step_s:.6e} s on NumPy")
+            warm = res["batched-torch", "warm"]
+            sub = "x".join(map(str, warm.sub_shape))
+            numpy_cold = (f"{secs['batched', 'cold']:<9.3f}" if ("batched", "cold") in secs
+                          else f"{'-':9s}")
+            print(f"{app.name:10s} {scenario:10s} {sub:>9s} "
+                  f"{warm.report.best.candidate.describe():30s} {warm.degraded_step_s:12.6e} "
+                  f"{warm.stale_step_s:12.6e} "
+                  f"{secs['batched-torch', 'warm']:8.3f}/{secs['batched-torch', 'cold']:<9.3f} "
+                  f"{secs['batched', 'warm']:8.3f}/{numpy_cold}")
+    launches = ops.launch_counts()["segment_rowmax"]
+    print(f"remap wall s, summed over apps and scenarios: torch warm "
+          f"{walls['batched-torch', 'warm']:.3f}, torch cold {walls['batched-torch', 'cold']:.3f}, "
+          f"numpy warm {walls['batched', 'warm']:.3f}, numpy cold "
+          f"{walls['batched', 'cold']:.3f} (cold on NumPy for "
+          f"{', '.join(REMAP_NUMPY_COLD_APPS)} only); segment_rowmax launches in the "
+          f"phase: {launches}")
+    if launches == 0:
+        failures.append("the torch remaps never launched segment_rowmax")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
+def service_trace() -> list:
+    """``SERVICE_REQUESTS`` requests drawn as
+    ``repro_torch.serving.serve.demo_trace`` draws them (seed 0, each
+    request after the first repeats an earlier one with probability 0.7)
+    from a pool of the nine apps at ``SERVICE_PROCS``."""
+    import random
+
+    from repro_torch import apps
+    from repro_torch.serving import TuneRequest
+
+    pool = [TuneRequest(app.name, procs) for app in apps.iter_apps()
+            if app.search_space is not None for procs in SERVICE_PROCS]
+    rng = random.Random(0)
+    out = []
+    for _ in range(SERVICE_REQUESTS):
+        if out and rng.random() < 0.7:
+            out.append(rng.choice(out))
+        else:
+            out.append(rng.choice(pool))
+    return out
+
+
+def _hold_plans(what: str, mine: list, ref: list) -> list[str]:
+    """Two runs' results, request by request: both plans, the same winner
+    (or a reference tie), placed seconds within 1e-6; for a remap also the
+    same sub-machine and degraded step time."""
+    from repro_torch.serving import MappingPlan
+
+    failures = []
+    for i, (a, b) in enumerate(zip(mine, ref)):
+        if not (isinstance(a, MappingPlan) and isinstance(b, MappingPlan)):
+            failures.append(f"{what} request {i}: {a!r} against {b!r}")
+            continue
+        tag = f"{what} request {i} ({a.app} at {a.procs})"
+        failures += _hold_winner(tag, a.leaderboard[0]["candidate"], a.leaderboard,
+                                 b.leaderboard[0]["candidate"], b.leaderboard)
+        if _max_rel([a.placed_cost], [b.placed_cost]) > PRICER_RTOL:
+            failures.append(f"{tag}: placed {a.placed_cost} against {b.placed_cost}")
+        if (a.remap is None) != (b.remap is None):
+            failures.append(f"{tag}: one answer is a remap, the other not")
+        elif a.remap is not None:
+            if a.remap["sub_shape"] != b.remap["sub_shape"]:
+                failures.append(f"{tag}: sub-machine {a.remap['sub_shape']} against "
+                                f"{b.remap['sub_shape']}")
+            if _max_rel([a.remap["degraded_step_s"]], [b.remap["degraded_step_s"]]) \
+                    > PRICER_RTOL:
+                failures.append(f"{tag}: degraded step {a.remap['degraded_step_s']} "
+                                f"against {b.remap['degraded_step_s']}")
+    if len(mine) != len(ref):
+        failures.append(f"{what}: {len(mine)} results against {len(ref)}")
+    return failures
+
+
+def service_phase(work: Path) -> int:
+    """The mapping service: the trace plus two node-death remaps through a
+    torch-engine service on the card (one worker), held to a NumPy-engine
+    service on the same trace; a second service on the same directory
+    answering every tune request from the plan cache; a two-worker service
+    giving the serial run's plans; and the service CLI's ``--demo`` on the
+    torch engine. Returns segment_rowmax's launches in the phase."""
+    import numpy as np
+
+    from repro_torch import apps
+    from repro_torch.kernels import ops
+    from repro_torch.serving import MappingPlan, MappingService, RemapRequest, serve
+    from repro_torch.serving.mapsvc import replay
+    from repro_torch.sim.collectives import clear_caches
+    from repro_torch.sim.cost import spec_for
+
+    trace = service_trace()
+    big = list(dict.fromkeys(r.app for r in trace if r.procs == PRICER_PROCS))[:2]
+    remaps = []
+    for name in big:
+        spec = spec_for(apps.get(name).machine_shape(PRICER_PROCS))
+        remaps.append(RemapRequest(app=name, failures=[spec.nprocs - 1],
+                                   procs=PRICER_PROCS))
+    print(f"service trace: {len(trace)} requests, {len(set(trace))} distinct "
+          f"({sorted({(r.app, r.procs) for r in trace})}), then node-death remaps "
+          f"of {big} at {PRICER_PROCS}")
+    runs = {}
+    ops.reset_launch_counts()
+    for run, engine, workers, root in (("torch", "batched-torch", 1, "svc"),
+                                       ("numpy", "batched", 1, "svc_numpy"),
+                                       ("cached", "batched-torch", 1, "svc"),
+                                       ("two workers", "batched-torch", 2, "svc_two")):
+        clear_caches()
+        t0 = time.perf_counter()
+        with MappingService(work / root, engine=engine, device="cuda",
+                            workers=workers) as svc:
+            # The remaps follow the resolved trace, so their stale plans
+            # are in the cache whatever the batch boundaries were.
+            runs[run] = replay(svc, trace)
+            if run != "cached":
+                runs[run] += replay(svc, remaps)
+        wall = time.perf_counter() - t0
+        summary = svc.stats.summary()
+        print(f"service {run:11s} ({engine}, {workers} worker{'s' * (workers > 1)}): "
+              f"{len(runs[run])} requests in {wall:.3f} s, {summary['cache_hits']} cache hits, "
+              f"{summary['searches']} searches, {summary['remaps']} remaps, p50 "
+              f"{summary['latency']['p50_s']:.4f} s, p95 {summary['latency']['p95_s']:.4f} s")
+        print(f"service {run} stats: {json.dumps(summary)}")
+    failures = _hold_plans("torch vs numpy", runs["torch"], runs["numpy"])
+    failures += _hold_plans("cached vs first", runs["cached"], runs["torch"][:len(trace)])
+    failures += [f"cached run request {i}: provenance {p.provenance}"
+                 for i, p in enumerate(runs["cached"])
+                 if getattr(p, "provenance", None) != "cache"]
+    failures += _hold_plans("two workers vs serial", runs["two workers"], runs["torch"])
+    for req, plan in zip(remaps, runs["torch"][len(trace):]):
+        if isinstance(plan, MappingPlan) and \
+                np.isin(np.asarray(plan.remap["placement"]), req.failures).any():
+            failures.append(f"service remap of {plan.app} placed work on a dead processor")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--demo", "20", "--backend", "torch", "--json"])
+    answered = [json.loads(line) for line in out.getvalue().splitlines()
+                if line.startswith('{"app"')]
+    print(f"serve --demo 20 --backend torch --json: exit {rc}, {len(answered)} answers, "
+          f"value tags {sorted({a.get('value_tag', a.get('rejected')) for a in answered})}")
+    if len(answered) != 20:
+        failures.append(f"serve --demo 20 answered {len(answered)} requests")
+    if rc != 0:
+        failures.append(f"repro_torch.serving.serve --demo 20 --backend torch exited {rc}")
+    launches = ops.launch_counts()["segment_rowmax"]
+    print(f"segment_rowmax launches in the service phase: {launches}")
+    if launches == 0:
+        failures.append("the torch services never launched segment_rowmax")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
+def warm_start_phase(work: Path, tuned: dict, cold_wall: float) -> int:
+    """``apps.run.tune`` at 4096 procs on the torch engine, seeded from the
+    plan cache the service filled (``warm_start_from``): it must pick the
+    tune phase's nine winners with placed seconds within 1e-6. Returns
+    segment_rowmax's launches in the run."""
+    from repro_torch import apps
+    from repro_torch.apps import run as runner
+    from repro_torch.kernels import ops
+    from repro_torch.sim.collectives import clear_caches
+
+    path = work / "warm.json"
+    clear_caches()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = runner.tune(list(apps.iter_apps()), PRICER_PROCS, report=lambda line: None,
+                     json_path=str(path), time_domain=True, backend="torch",
+                     device="cuda", warm_start_from=str(work / "svc"))
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["segment_rowmax"]
+    if rc != 0:
+        fail(f"the warm-started torch tune at {PRICER_PROCS} procs exited {rc}")
+    rows = {row["app"]: row for row in json.loads(path.read_text())["apps"]}
+    failures = []
+    for name, want in tuned.items():
+        row = rows.get(name)
+        if row is None:
+            failures.append(f"{name}: not tuned warm")
+            continue
+        print(f"warm-start {name:10s} seeds {row['warm_seeds']} winner "
+              f"{row['best']['candidate']:30s} placed {row['best']['placed_cost']:.6e}")
+        if row["best"]["candidate"] != want["best"]["candidate"]:
+            failures.append(f"{name}: warm winner {row['best']['candidate']}, cold "
+                            f"{want['best']['candidate']}")
+        if _max_rel([row["best"]["placed_cost"]], [want["best"]["placed_cost"]]) > PRICER_RTOL:
+            failures.append(f"{name}: warm placed {row['best']['placed_cost']}, cold "
+                            f"{want['best']['placed_cost']}")
+    print(f"warm-start tune wall: {wall:.3f} s (the tune phase's cold torch tune "
+          f"{cold_wall:.3f} s); {sum(r['warm_seeds'] for r in rows.values())} seeds; "
+          f"segment_rowmax launches {launches}")
+    if launches == 0:
+        failures.append("the warm-started tune never launched segment_rowmax")
     if failures:
         fail("; ".join(failures))
     return launches
@@ -1093,7 +1459,14 @@ def main() -> int:
     counts = apps_phase()
     steady_times()
     pricer_phase()
-    counts["segment_rowmax"] = tune_phase()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as tmp:
+        work = Path(tmp)
+        launches, tuned, cold_wall = tune_phase(work)
+        by_path = {"tune": launches, "remap": remap_phase(work),
+                   "service": service_phase(work),
+                   "warm_start": warm_start_phase(work, tuned, cold_wall)}
+    counts["segment_rowmax"] = launches
+    rows["segment_rowmax"]["launches_by_path"] = by_path
     torch.cuda.empty_cache()
     lm_counts, lm_state = lm_prefill_phase(LM_ARCH, ("flash_attention", "mamba_scan"),
                                            PREFILL_TOL, seed=1)

@@ -38,7 +38,12 @@ and <=1e-6-relative identical seconds; ``--backend numpy`` is host code.
 streaming producer/consumer Phase 3 on or off (default: auto — stream
 when the pricing engine is ``batched-torch``; identical numbers either
 way). ``--cache-dir DIR`` persists placement prices under
-``DIR/prices`` so re-tunes serve from disk.
+``DIR/prices`` so re-tunes serve from disk. ``--warm-start-from DIR``
+(with ``--tune --time``) seeds each beam from the tuning service's plan
+cache under ``DIR/plans`` and stores every winner back there:
+
+    python -m repro_torch.apps.run --all --tune --time --backend torch \\
+        --procs 4096 --warm-start-from ~/.cache/repro-plans
 
 ``--simulate`` runs each selected app's mapped step through the
 discrete-event simulator (``repro_torch.sim``) on the host: the plan's
@@ -159,7 +164,8 @@ def _finish(procs: int | None, json_rows: list, failures: list[str],
 def tune(selection, procs: int | None, report=print,
          json_path: str | None = None, time_domain: bool = False,
          backend: str = "numpy", pipeline: bool | None = None,
-         cache_dir: str | None = None, device: str = "cuda") -> int:
+         cache_dir: str | None = None, device: str = "cuda",
+         warm_start_from: str | None = None) -> int:
     """Run the autotuner over the selected apps; nonzero on any failure.
 
     ``time_domain`` swaps each app's volume objective for the batched
@@ -173,6 +179,10 @@ def tune(selection, procs: int | None, report=print,
     (True) or off (False; None auto-selects it for the torch engine), and
     ``cache_dir`` points the persistent price cache at a directory so
     repeat tunes skip pricing across processes.
+    ``warm_start_from`` points at a plan-cache directory (the tuning
+    service's ``--cache-dir``, same on-disk format): cached winners near
+    each requested scale seed the beam, and every winner tuned here is
+    stored back for the service (and future batch runs) to reuse.
     """
     import time
 
@@ -189,6 +199,15 @@ def tune(selection, procs: int | None, report=print,
 
         price_cache = PriceCache(os.path.join(cache_dir, "prices"))
         report(f"price cache: {price_cache.root}")
+    plan_cache = None
+    if warm_start_from is not None:
+        if not time_domain:
+            raise ValueError("warm_start_from requires time_domain=True "
+                             "(plan payloads carry placed seconds)")
+        from repro_torch.serving.plan_cache import PlanCache
+
+        plan_cache = PlanCache(os.path.join(warm_start_from, "plans"))
+        report(f"plan cache: {plan_cache.root}")
     if time_domain and backend == "torch":
         from repro_torch.sim.torch_backend import platform_info
 
@@ -236,7 +255,22 @@ def tune(selection, procs: int | None, report=print,
             engine = "batched-torch" if backend == "torch" else "batched"
             app = time_tuned_app(app, engine=engine, device=device,
                                  cache=price_cache)
-        rep = tune_app(app, procs, pipeline=pipeline)
+        warm_seeds = ()
+        plan_coords = None
+        if plan_cache is not None:
+            from repro_torch.serving.mapsvc import plan_key_for, warm_seeds_for
+
+            n_res, key, tag = plan_key_for(app, procs, engine=engine)
+            plan_coords = (key, tag)
+            warm_seeds = warm_seeds_for(plan_cache, app.name, n_res,
+                                        app.search_space)
+        rep = tune_app(app, procs, pipeline=pipeline, warm_start=warm_seeds)
+        if plan_coords is not None:
+            from repro_torch.serving.mapsvc import plan_from_report
+
+            key, tag = plan_coords
+            plan_cache.put(key, plan_from_report(
+                rep, value_tag_=tag, provenance="cold").payload())
         tuned += 1
         for line in report_lines(rep):
             report(line)
@@ -352,6 +386,11 @@ def main(argv=None) -> int:
                     help="with --tune --time: persistent cache directory "
                          "— priced placements (DIR/prices) are reused "
                          "across processes")
+    ap.add_argument("--warm-start-from", default=None, metavar="DIR",
+                    help="with --tune --time: seed the beam from the plan "
+                         "cache under DIR/plans (the tuning service's "
+                         "--cache-dir; winners tuned here are stored back "
+                         "— one shared on-disk format)")
     ap.add_argument("--simulate", action="store_true",
                     help="run each app's mapped step through the "
                          "discrete-event simulator and print the timeline")
@@ -379,6 +418,8 @@ def main(argv=None) -> int:
         ap.error("--pipeline/--no-pipeline requires --tune --time")
     if args.cache_dir is not None and not args.time:
         ap.error("--cache-dir requires --tune --time")
+    if args.warm_start_from is not None and not args.time:
+        ap.error("--warm-start-from requires --tune --time")
     if args.simulate and (args.execute or args.show_ir):
         ap.error("--simulate is a separate mode; run it without "
                  "--execute/--show-ir")
@@ -415,7 +456,8 @@ def main(argv=None) -> int:
         return tune(selection, args.procs, json_path=args.json,
                     time_domain=args.time, backend=args.backend,
                     pipeline=args.pipeline, cache_dir=args.cache_dir,
-                    device=args.device)
+                    device=args.device,
+                    warm_start_from=args.warm_start_from)
     if args.simulate:
         return simulate(selection, args.procs, json_path=args.json)
 

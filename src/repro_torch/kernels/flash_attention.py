@@ -84,7 +84,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ctypes.addressof(strides), B, S, H, Kv, d, scale, int(window),
         int(bool(causal)), stream)
     build.check(lib, err, "flash_attention")
-    flash_attention_cuda.launches += 1
+    build.count_launch(flash_attention_cuda)
     return out
 
 

@@ -52,7 +52,7 @@ def mamba_scan_cuda(xs: torch.Tensor, dt: torch.Tensor, Bs: torch.Tensor,
         xs.data_ptr(), dt.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), A.data_ptr(),
         y.data_ptr(), state.data_ptr(), B, T, di, n, stream)
     build.check(lib, err, "mamba_scan")
-    mamba_scan_cuda.launches += 1
+    build.count_launch(mamba_scan_cuda)
     return y, state
 
 

@@ -57,7 +57,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     err = getattr(lib.lib, DTYPES[a.dtype])(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), nbatch, m, n, k, stream)
     build.check(lib, err, "matmul")
-    matmul_cuda.launches += 1
+    build.count_launch(matmul_cuda)
     return out
 
 

@@ -44,7 +44,7 @@ def segment_rowmax_cuda(vals: torch.Tensor, seg: int = 1) -> torch.Tensor:
     err = getattr(lib.lib, ENTRY[vals.dtype])(
         vals.data_ptr(), out.data_ptr(), rows, cols, seg, stream)
     build.check(lib, err, "segment_rowmax")
-    segment_rowmax_cuda.launches += 1
+    build.count_launch(segment_rowmax_cuda)
     return out
 
 

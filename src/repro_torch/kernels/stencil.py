@@ -50,7 +50,7 @@ def stencil_cuda(x: torch.Tensor, *, interior: bool) -> torch.Tensor:
     err = lib.lib.mapple_stencil_f32(x.data_ptr(), out.data_ptr(), nbatch,
                                      h, w, h_out, w_out, offset, stream)
     build.check(lib, err, "stencil")
-    stencil_cuda.launches += 1
+    build.count_launch(stencil_cuda)
     return out
 
 

@@ -58,7 +58,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y.data_ptr(), state.data_ptr(), ctypes.addressof(strides), B, T, H, N,
         stream)
     build.check(lib, err, "wkv6")
-    wkv6_cuda.launches += 1
+    build.count_launch(wkv6_cuda)
     return y, state
 
 

@@ -376,21 +376,28 @@ class _ScheduleExport:
 _EXPORT_HOSTS: "weakref.WeakValueDictionary[int, PackedSchedule]" = \
     weakref.WeakValueDictionary()
 _EXPORT_STATS = {"hits": 0, "misses": 0}
+#: Guards the registry, each schedule's export dict and the counters:
+#: the tuning service's worker threads price schedules at once, and a
+#: lookup-then-insert or a ``+= 1`` is not atomic under the interpreter
+#: lock.
+_EXPORT_LOCK = threading.Lock()
 
 
 def _exports_clear() -> None:
-    for sched in list(_EXPORT_HOSTS.values()):
-        cache = getattr(sched, "_torch_exports", None)
-        if cache:
-            cache.clear()
-    for key in _EXPORT_STATS:
-        _EXPORT_STATS[key] = 0
+    with _EXPORT_LOCK:
+        for sched in list(_EXPORT_HOSTS.values()):
+            cache = getattr(sched, "_torch_exports", None)
+            if cache:
+                cache.clear()
+        for key in _EXPORT_STATS:
+            _EXPORT_STATS[key] = 0
 
 
 def _exports_stats() -> dict:
-    size = sum(len(getattr(sched, "_torch_exports", ()) or ())
-               for sched in _EXPORT_HOSTS.values())
-    return {"size": size, **_EXPORT_STATS}
+    with _EXPORT_LOCK:
+        size = sum(len(getattr(sched, "_torch_exports", ()) or ())
+                   for sched in list(_EXPORT_HOSTS.values()))
+        return {"size": size, **_EXPORT_STATS}
 
 
 register_cache("torch_exports", _exports_clear, _exports_stats)
@@ -400,19 +407,20 @@ def _export_for(sched: PackedSchedule, topo: Topology) -> _ScheduleExport:
     """The (schedule, topology) export, cached on the schedule object so
     its device constants are shared by every engine pricing that
     schedule and die with it."""
-    cache = getattr(sched, "_torch_exports", None)
-    if cache is None:
-        cache = {}
-        object.__setattr__(sched, "_torch_exports", cache)
-        _EXPORT_HOSTS[id(sched)] = sched
-    key = (topo.spec, topo.alphas, topo.betas, topo.degraded)
-    hit = cache.get(key)
-    if hit is None:
-        _EXPORT_STATS["misses"] += 1
-        hit = cache[key] = _ScheduleExport(sched, topo)
-    else:
-        _EXPORT_STATS["hits"] += 1
-    return hit
+    with _EXPORT_LOCK:
+        cache = getattr(sched, "_torch_exports", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(sched, "_torch_exports", cache)
+            _EXPORT_HOSTS[id(sched)] = sched
+        key = (topo.spec, topo.alphas, topo.betas, topo.degraded)
+        hit = cache.get(key)
+        if hit is None:
+            _EXPORT_STATS["misses"] += 1
+            hit = cache[key] = _ScheduleExport(sched, topo)
+        else:
+            _EXPORT_STATS["hits"] += 1
+        return hit
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,8 @@ for needed in sys.argv[2:]:
 print("imported", len(names))
 """
 
-# The LM serving slices: every module must be among those imported.
+# The LM serving slices and the tuner's service and fault layers: every
+# module must be among those imported.
 LM_MODULES = [
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
     "repro_torch.models", "repro_torch.models.config",
@@ -42,6 +43,10 @@ LM_MODULES = [
     "repro_torch.kernels.wkv6",
     "repro_torch.launch.serve", "repro_torch.serving.scheduler",
     "repro_torch.serving.stats",
+    "repro_torch.serving", "repro_torch.serving.plan_cache",
+    "repro_torch.serving.mapsvc", "repro_torch.serving.serve",
+    "repro_torch.search.remap", "repro_torch.core.autosharder",
+    "repro_torch.runtime", "repro_torch.runtime.resilience",
 ]
 
 
