@@ -55,7 +55,8 @@ NVIDIA H100:
 9. holds the LM kernels against their plain versions at the serving
    path's shapes and times them: flash_attention at the hymba-1.5b
    prefill (B=4, S=2048, 25 heads over 5 KV heads, d=64, window 1024),
-   the smollm-135m prefill (9 over 3 heads, no window) and a ragged
+   the smollm-135m prefill (9 over 3 heads, no window), the
+   qwen2-moe-a2.7b prefill (16 heads of 128, no window) and a ragged
    length, in bf16 (rtol=atol=2e-2) and fp32 (1e-4), with
    ``F.scaled_dot_product_attention`` as the yardstick, then the bf16
    kernel's tile edges (S one short of, at and one past a 64-row tile,
@@ -64,40 +65,60 @@ NVIDIA H100:
    hymba prefill (B=4, T=2048, d_inner 3200, state 16), a ragged one and
    its tile edges (``MAMBA_EDGES``), fp32 (1e-4), timed beside the
    exponentials' MUFU floor;
-10. drives the LM serving path at hymba-1.5b's full width (32 layers,
-   weights from a seeded generator on the card): the prefill step with the
-   kernels (B=4, prompt 2048 > the 1024 window), counters set to 0 just
-   before and read just after (32 launches of each kernel); in fp32 its
+10. drives the LM serving path at hymba-1.5b's full width (at 16 of its
+   32 layers, ``EARLIER_LM_LAYERS``; weights from a seeded generator on
+   the card): the prefill step with the kernels (B=4, prompt 2048 > the
+   1024 window), counters set to 0 just before and read just after (16
+   launches of each kernel); in fp32 its
    last logits against the plain prefill (rtol 1e-2, atol 5e-2, the
    mixer tolerance of tests/test_kernels.py), beside it the bf16 kernel
    prefill's difference from the bf16 plain one (reported; gated only on
    finite logits), and the median prefill wall time with and without the
    kernels; a 256-token prompt teacher-forced through ``decode_step``
-   against the kernel prefill's last logits (fp32, 2e-3); the serving CLI
-   (batch 4, prompt 32, gen 16) and a 4-slot ``ContinuousBatcher``
-   answering 8 requests of prompts 16-128; then smollm-135m's prefill
+   against the kernel prefill's last logits (fp32, 2e-3); a 4-slot
+   ``ContinuousBatcher`` answering 8 requests of prompts 16-128, then,
+   with the weights freed, the serving CLI (batch 4, prompt 32, gen 16),
+   which draws its own; then smollm-135m's prefill
    (no window) with the kernels against its plain prefill (fp32, 2e-3);
 11. holds wkv6 against its plain version (fp32, rtol=atol=1e-4) at the
    rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64), at a ragged T,
    at head sizes 32 and 16 and at its tile edges (``WKV6_EDGES``), and
    times it at the prefill shape;
-12. drives RWKV-6 serving at rwkv6-3b's full width (32 layers, d_model
-   2560, d_ff 8960, vocabulary 65536; 3073313280 parameters drawn from a
+12. drives RWKV-6 serving at rwkv6-3b's full width (16 of its 32 layers,
+   d_model 2560, d_ff 8960, vocabulary 65536; parameters drawn from a
    seed, fp32 on the card, after hymba's are freed): the prefill step with
    the wkv6 kernel (B=4, prompt 2048), counters set to 0 just before and
-   read just after (32 launches); in fp32 its last logits against the
+   read just after (16 launches); in fp32 its last logits against the
    plain prefill (the per-step scan) within a max |diff| of 1e-3, the bf16
    difference reported, and the median bf16 prefill wall time with and
    without the kernel; a 256-token prompt teacher-forced through
    ``decode_step`` (the scan from the carried state) against the kernel
-   prefill's last logits (fp32, 2e-3); the serving CLI (batch 4, prompt
-   32, gen 16) and a 4-slot ``ContinuousBatcher`` answering 8 requests;
-13. prints one JSON ``kernels`` line (matmul and stencil launches from the
+   prefill's last logits (fp32, 2e-3); a 4-slot ``ContinuousBatcher``
+   answering 8 requests, then the serving CLI (batch 4, prompt 32, gen 16);
+13. drives MoE serving at qwen2-moe-a2.7b's full width and depth (24
+   layers, 60 routed experts padded to 64, top-4, 4 shared; 15146928128
+   parameters, 60.59 GB of fp32 weights drawn after rwkv6-3b's are
+   freed): the same phases as 12, with flash_attention launched once a
+   layer (24) and no other kernel; routing is discontinuous, so the fp32
+   kernel prefill runs on the plain prefill's expert choices and is held
+   within DECODE_TOL of it (the free-running difference reported), every
+   replayed choice within ``FLIP_TOL`` of the run's own top-k, and the
+   decode check likewise on the prefill's routing; the bf16 kernel
+   prefill is run twice and the difference reported;
+14. drives MLA serving at deepseek-v2-lite-16b's full width and depth (27
+   layers, one dense, then 64 experts top-6 and 2 shared; MLA latent rank
+   512; 15706484224 parameters, 62.83 GB): ``use_kernel=True`` must raise
+   the MLA ``ValueError`` (the reference has no kernel route either); the
+   plain prefill, counted with no kernel launched, is the served one; the
+   decode check, batcher and CLI as in 12; phases 10, 12, 13 and 14 print
+   their peak memory, and each frees its weights before the serving CLI
+   draws its own (two copies of an MoE model do not fit on the card);
+15. prints one JSON ``kernels`` line (matmul and stencil launches from the
    execute path, segment_rowmax launches from the tune path and, by path,
-   from phases 5-8,
-   flash_attention and mamba_scan launches from the hymba prefill, wkv6
-   launches from the rwkv6-3b prefill), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+   from phases 5-8, flash_attention launches summed over the hymba,
+   smollm and qwen2-moe prefills and by path, mamba_scan launches from
+   the hymba prefill, wkv6 launches from the rwkv6-3b prefill), the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA card,
 or without the rest of the repository beside it, it fails.
@@ -207,6 +228,28 @@ LM_KERNELS = ("flash_attention", "mamba_scan", "wkv6")
 RWKV_ARCH = "rwkv6-3b"
 RWKV_HEADS, RWKV_HEAD = 40, 64
 RWKV_PREFILL_TOL = dict(rtol=0.0, atol=1e-3)
+# MoE and MLA serving at full width: qwen2-moe-a2.7b (flash at head dim
+# 128; its fp32 kernel prefill held to the plain one within DECODE_TOL,
+# stated before the run: only attention differs) and deepseek-v2-lite-16b
+# (MLA: no kernel route, the plain prefill served).
+MOE_ARCH = "qwen2-moe-a2.7b"
+MLA_ARCH = "deepseek-v2-lite-16b"
+# Routing is discontinuous: fp32 runs whose sums differ in order (kernel
+# against plain, decode against prefill) pick other experts for tokens at
+# near-ties of the top-k (qwen2-moe's fp32 kernel and plain prefills
+# differed in 144 of 196608 (token, layer) expert sets, first at MoE
+# layer 6, and their last logits by 1.4e-2). So the MoE checks replay
+# the reference run's routing in the other run and hold the logits to
+# the tolerance on shared routing; the free-running difference is
+# reported. A flip is allowed only at a near-tie: the replayed expert
+# within FLIP_TOL (router probability) of this run's own top-k.
+FLIP_TOL = 1e-4
+# hymba-1.5b's and rwkv6-3b's paths run at 16 of their 32 layers, at their
+# published widths: with the MoE and MLA phases the command would take
+# about 625 s at full depth, past half its 1200 s limit, and their plain
+# prefills and batchers (host-bound, per layer) are most of their time.
+# The serving CLI still builds them at full depth.
+EARLIER_LM_LAYERS = 16
 
 
 def fail(msg: str) -> None:
@@ -1088,9 +1131,10 @@ def lm_kernel_phase() -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    # (B, S, H, Kv, d, window): hymba prefill, smollm prefill, ragged.
+    # (B, S, H, Kv, d, window): hymba prefill, smollm prefill, qwen2-moe
+    # prefill (head dim 128), ragged.
     shapes = [(LM_BATCH, LM_PROMPT, 25, 5, 64, 1024), (LM_BATCH, LM_PROMPT, 9, 3, 64, 0),
-              (2, 1000, 25, 5, 64, 1024)]
+              (LM_BATCH, LM_PROMPT, 16, 16, 128, 0), (2, 1000, 25, 5, 64, 1024)]
     fa_rows, fa_err = {}, 0.0
     for B, S, H, Kv, d, window in shapes:
         for dt in ("bfloat16", "float32"):
@@ -1163,7 +1207,9 @@ def lm_kernel_phase() -> dict:
         "flash_attention": {**main_fa, "max_abs_err": fa_err,
                             "float32": fa_rows[(25, "float32")],
                             "smollm": {"bfloat16": fa_rows[(9, "bfloat16")],
-                                       "float32": fa_rows[(9, "float32")]}},
+                                       "float32": fa_rows[(9, "float32")]},
+                            "qwen2_moe": {"bfloat16": fa_rows[(16, "bfloat16")],
+                                          "float32": fa_rows[(16, "float32")]}},
         "mamba_scan": {**ms_row, "max_abs_err": ms_err},
     }
 
@@ -1223,11 +1269,13 @@ def wkv6_kernel_phase() -> dict:
     return {"wkv6": {**row, "max_abs_err": err_all}}
 
 
-def _full(arch: str, dtype: str):
+def _full(arch: str, dtype: str, n_layers: int | None = None):
+    """``arch`` at its published widths, at ``n_layers`` if given."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
 
-    return build(dataclasses.replace(get_config(arch), dtype=dtype))
+    cfg = get_config(arch)
+    return build(dataclasses.replace(cfg, dtype=dtype, n_layers=n_layers or cfg.n_layers))
 
 
 def _tokens(cfg, B: int, S: int, seed: int):
@@ -1269,115 +1317,256 @@ def _max_diff(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def lm_prefill_phase(arch: str, kernels: tuple[str, ...], tol: dict,
-                     seed: int) -> tuple[dict, dict]:
-    """An LM serving path's prefill at ``arch``'s full width: one counted
-    bf16 prefill (each of ``kernels`` launched once per layer, the other
-    LM kernels never), the fp32 kernel prefill against the plain one
-    within ``tol``, and the bf16 wall time with and without the kernels.
-    Returns the counts and the state for decode and serving."""
+def _weights_gb(tree) -> float:
+    if isinstance(tree, dict):
+        return sum(_weights_gb(v) for v in tree.values())
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def _peak_gb() -> str:
     import torch
 
+    return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+
+
+@contextlib.contextmanager
+def _routing(replay: list | None = None):
+    """Patch ``moe.route`` for one run: record each call's expert ids
+    (G, Ng, K) and top-k margin (the K-th minus the (K+1)-th router
+    probability), in call order, kept on the card until read. With
+    ``replay`` (ids recorded from another run, one entry a call in this
+    run's order), each call returns those ids instead, gated by this run's
+    probabilities renormalised, and records this run's own ids and the
+    shortfall: this run's K-th probability minus the smallest replayed
+    one (0 where the two sets agree). Routing is discontinuous: a near-tie
+    in the top-k flips a token's experts when sums change order, so two
+    runs are held to each other on shared routing, and every flip to a
+    shortfall within ``FLIP_TOL``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    log, real = [], moe.route
+
+    def recording(params, xg, cfg):
+        logits, probs, gates, idx = real(params, xg, cfg)
+        top = torch.topk(probs, cfg.topk + 1, dim=-1).values
+        entry = {"ids": idx, "margin": top[..., -2] - top[..., -1]}
+        if replay is not None:
+            entry["own_ids"], idx = idx, replay[len(log)]
+            entry["ids"] = idx
+            chosen = torch.gather(probs, -1, idx)
+            gates = chosen / torch.clamp(chosen.sum(-1, keepdim=True), min=1e-9)
+            entry["shortfall"] = top[..., -2] - chosen.min(dim=-1).values
+        log.append(entry)
+        return logits, probs, gates, idx
+
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = real
+
+
+def _routing_check(what: str, log: list, ref: list, last: list[int]) -> None:
+    """A replayed run's flips (tokens whose own expert set differs from the
+    replayed one) and largest shortfall, and the reference run's smallest
+    top-k margin over all tokens and at the ``last`` flat token indices
+    (ref's entries a MoE layer); fails on a shortfall beyond FLIP_TOL."""
+    import torch
+
+    flips = sum(int((torch.sort(e["own_ids"], dim=-1).values
+                     != torch.sort(e["ids"], dim=-1).values).any(-1).sum()) for e in log)
+    shortfall = max(float(e["shortfall"].max()) for e in log)
+    margins = torch.stack([e["margin"] for e in ref]).flatten(1)    # (L, G*Ng)
+    print(f"{what}: routing flips {flips} of {margins.numel()} (token, MoE layer) expert "
+          f"sets, largest shortfall {shortfall:.3e} (limit {FLIP_TOL:g}); the reference's "
+          f"smallest top-k probability margin {float(margins.min()):.3e} over all tokens, "
+          f"{float(margins[:, last].min()):.3e} at the last tokens")
+    if shortfall > FLIP_TOL:
+        fail(f"{what}: a replayed expert falls {shortfall:.3e} short of the top-k, beyond "
+             f"{FLIP_TOL:g}: more than a near-tie")
+
+
+def _refuses_kernels(step, params, toks, what: str) -> None:
+    """MLA with use_kernel=True must raise its ValueError, launching no
+    kernel; anything else fails the run."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    try:
+        step(params, toks)
+    except ValueError as e:
+        if "MLA" not in str(e):
+            fail(f"{what}: use_kernel=True raised a ValueError that does not name MLA: {e}")
+        print(f"{what}: use_kernel=True raises ValueError: {e}")
+    else:
+        fail(f"{what}: use_kernel=True ran instead of raising the MLA ValueError")
+    if any(ops.launch_counts().values()):
+        fail(f"{what}: launched {ops.launch_counts()} before raising")
+
+
+def lm_prefill_phase(arch: str, kernels: tuple[str, ...], tol: dict | None,
+                     seed: int, n_layers: int | None = None) -> tuple[dict, dict]:
+    """An LM serving path's prefill at ``arch``'s full width (at ``n_layers``
+    if given, else its full depth): one counted
+    bf16 prefill (each of ``kernels`` launched once per layer, every other
+    kernel never), the fp32 kernel prefill against the plain one within
+    ``tol``, and the bf16 wall time with and without the kernels. With no
+    kernels (MLA), the served prefill is the plain one, counted with no
+    launch; ``use_kernel=True`` must raise; the walls time the plain
+    prefill. MoE configs print their routing diagnostic. Returns the counts
+    and the state for decode and serving."""
+    import torch
+
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
 
-    model, model32 = _full(arch, "bfloat16"), _full(arch, "float32")
+    torch.cuda.reset_peak_memory_stats()
+    model, model32 = _full(arch, "bfloat16", n_layers), _full(arch, "float32", n_layers)
     cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    print(f"{arch}: {model.n_params} parameters (fp32 on the card, "
-          f"{time.perf_counter() - t0:.2f} s to draw), {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, window {cfg.sliding_window}, "
-          f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, vocabulary {cfg.vocab_size}")
+    moe_desc = (f", {cfg.n_experts} experts (padded to {cfg.padded_experts}) top-"
+                f"{cfg.topk} of d_ff {cfg.moe_d_ff} + {cfg.n_shared_experts} shared, "
+                f"{cfg.first_dense_layers} dense first" if cfg.n_experts else "")
+    mla_desc = (f", MLA rank {cfg.kv_lora_rank}, qk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, "
+                f"v {cfg.v_head_dim}" if cfg.use_mla else "")
+    print(f"{arch}: {model.n_params} parameters, {_weights_gb(params):.2f} GB of fp32 "
+          f"weights on the card ({time.perf_counter() - t0:.2f} s to draw), "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, window "
+          f"{cfg.sliding_window}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+          f"vocabulary {cfg.vocab_size}{moe_desc}{mla_desc}")
     toks = _tokens(cfg, LM_BATCH, LM_PROMPT, seed=seed)
-    expect = {k: cfg.n_layers if k in kernels else 0 for k in LM_KERNELS}
-    none = {k: 0 for k in LM_KERNELS}
-    kern, plain = make_prefill_step(model), make_prefill_step(model, use_kernel=False)
-    kern32 = make_prefill_step(model32)
+    expect = {k: cfg.n_layers if k in kernels else 0 for k in ops.launch_counts()}
+    none = {k: 0 for k in expect}
+    plain = make_prefill_step(model, use_kernel=False)
     plain32 = make_prefill_step(model32, use_kernel=False)
-
-    # The main path: one counted bf16 prefill through the kernels.
-    out_bf16, counts = _counted(kern, params, toks, expect, f"{arch} bf16 prefill")
+    last = [(b + 1) * LM_PROMPT - 1 for b in range(LM_BATCH)]
     want_shape = (LM_BATCH, 1, cfg.padded_vocab)
-    if tuple(out_bf16.shape) != want_shape:
-        fail(f"{arch} prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
-    out32, _ = _counted(kern32, params, toks, expect, f"{arch} fp32 prefill")
-    ref32, _ = _counted(plain32, params, toks, none, f"{arch} fp32 plain prefill")
-    ref_bf16, _ = _counted(plain, params, toks, none, f"{arch} bf16 plain prefill")
-    err32 = _max_diff(out32, ref32)
-    print(f"{arch} prefill B={LM_BATCH} S={LM_PROMPT} last logits, kernels vs plain max "
-          f"|diff|: fp32 {err32:.3e} (limit {tol}; max |logit| "
-          f"{float(ref32.abs().max()):.3e}), bf16 {_max_diff(out_bf16, ref_bf16):.3e} "
-          f"(finite; no limit)")
-    if not torch.allclose(out32, ref32, **tol):
-        fail(f"{arch} fp32 kernel prefill disagrees with the plain prefill: max |diff| "
-             f"{err32:.3e} beyond {tol}")
-    print(f"{arch} prefill bf16: kernels vs fp32 plain max |diff| "
-          f"{_max_diff(out_bf16, ref32):.3e}, bf16 plain vs fp32 plain "
-          f"{_max_diff(ref_bf16, ref32):.3e} (reported, no limit)")
 
-    # Wall time in turns: kernels, plain, plain, kernels, kernels, plain.
-    walls = {"kernels": [], "plain": []}
-    for which in ("kernels", "plain", "plain", "kernels", "kernels", "plain"):
-        step = kern if which == "kernels" else plain
-        walls[which].append(_wall_s(lambda: step(params, toks)))
+    if not kernels:
+        # MLA: no kernel route. The served prefill is the plain one.
+        for m in (model, model32):
+            _refuses_kernels(make_prefill_step(m), params, toks,
+                             f"{arch} {m.cfg.dtype} prefill")
+        out_bf16, counts = _counted(plain, params, toks, none,
+                                    f"{arch} bf16 plain prefill (the served route)")
+        if tuple(out_bf16.shape) != want_shape:
+            fail(f"{arch} prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
+        ref32, _ = _counted(plain32, params, toks, none, f"{arch} fp32 plain prefill")
+        print(f"{arch} prefill bf16: plain vs fp32 plain max |diff| "
+              f"{_max_diff(out_bf16, ref32):.3e} (max |logit| {float(ref32.abs().max()):.3e}; "
+              f"reported, no limit)")
+        walls = {"plain": [_wall_s(lambda: plain(params, toks)) for _ in range(3)]}
+    else:
+        kern = make_prefill_step(model)
+        kern32 = make_prefill_step(model32)
+        # The main path: one counted bf16 prefill through the kernels.
+        out_bf16, counts = _counted(kern, params, toks, expect, f"{arch} bf16 prefill")
+        if tuple(out_bf16.shape) != want_shape:
+            fail(f"{arch} prefill logits of shape {tuple(out_bf16.shape)}, not {want_shape}")
+        out32, _ = _counted(kern32, params, toks, expect, f"{arch} fp32 prefill")
+        with _routing() as log_p:
+            ref32, _ = _counted(plain32, params, toks, none, f"{arch} fp32 plain prefill")
+        ref_bf16, _ = _counted(plain, params, toks, none, f"{arch} bf16 plain prefill")
+        if cfg.n_experts:
+            free = _max_diff(out32, ref32)
+            with _routing([e["ids"] for e in log_p]) as log_r:
+                out32, _ = _counted(kern32, params, toks, expect,
+                                    f"{arch} fp32 prefill on the plain prefill's routing")
+            _routing_check(f"{arch} fp32 prefill, kernels on the plain prefill's routing",
+                           log_r, log_p, last)
+            print(f"{arch} fp32 prefill kernels vs plain, each routing freely: max |diff| "
+                  f"{free:.3e} (reported; the check below shares the plain routing)")
+        err32 = _max_diff(out32, ref32)
+        print(f"{arch} prefill B={LM_BATCH} S={LM_PROMPT} last logits, kernels vs plain "
+              f"max |diff|: fp32 {err32:.3e} (limit {tol}; max |logit| "
+              f"{float(ref32.abs().max()):.3e}), bf16 {_max_diff(out_bf16, ref_bf16):.3e} "
+              f"(finite; no limit)")
+        if not torch.allclose(out32, ref32, **tol):
+            fail(f"{arch} fp32 kernel prefill disagrees with the plain prefill: max |diff| "
+                 f"{err32:.3e} beyond {tol}")
+        print(f"{arch} prefill bf16: kernels vs fp32 plain max |diff| "
+              f"{_max_diff(out_bf16, ref32):.3e}, bf16 plain vs fp32 plain "
+              f"{_max_diff(ref_bf16, ref32):.3e} (reported, no limit)")
+        if cfg.n_experts:
+            again = kern(params, toks)
+            print(f"{arch} bf16 kernel prefill run twice: max |diff| "
+                  f"{_max_diff(again, out_bf16):.3e} (the scatter-adds' order; reported)")
+        # Wall time in turns: kernels, plain, plain, kernels, kernels, plain.
+        walls = {"kernels": [], "plain": []}
+        for which in ("kernels", "plain", "plain", "kernels", "kernels", "plain"):
+            step = kern if which == "kernels" else plain
+            walls[which].append(_wall_s(lambda: step(params, toks)))
     med = {k: statistics.median(v) for k, v in walls.items()}
     print(f"{arch} prefill bf16 B={LM_BATCH} S={LM_PROMPT} wall s, median of 3: "
-          f"kernels {med['kernels']:.4f} {walls['kernels']}, plain {med['plain']:.4f} "
-          f"{walls['plain']}")
-    return counts, {"params": params, "model": model, "model32": model32}
+          + ", ".join(f"{k} {med[k]:.4f} {v}" for k, v in walls.items()))
+    print(f"{arch} prefill phase peak memory {_peak_gb()} (weights "
+          f"{_weights_gb(params):.2f} GB)")
+    return counts, {"params": params, "model": model, "model32": model32,
+                    "use_kernel": bool(kernels)}
 
 
 def lm_decode_phase(state: dict, arch: str) -> None:
     """A 256-token prompt teacher-forced through decode_step (fp32) against
-    the kernel prefill's last logits."""
+    the prefill's last logits (through the kernels where the path has
+    them); MoE configs on the prefill's routing (see FLIP_TOL)."""
     import torch
 
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
 
+    torch.cuda.reset_peak_memory_stats()
     model32, params = state["model32"], state["params"]
-    toks = _tokens(model32.cfg, 1, DECODE_PROMPT, seed=2)
-    want = make_prefill_step(model32)(params, toks)
-    cache = model32.init_cache(1, DECODE_PROMPT, device="cuda")
+    cfg = model32.cfg
+    toks = _tokens(cfg, 1, DECODE_PROMPT, seed=2)
+    with _routing() as log_p:
+        want = make_prefill_step(model32, use_kernel=state["use_kernel"])(params, toks)
     step = make_serve_step(model32)
+
+    # MoE configs decode on the prefill's routing (decode calls the router
+    # once a MoE layer a step: step-major); see FLIP_TOL.
+    replay = ([e["ids"][:, t:t + 1] for t in range(DECODE_PROMPT) for e in log_p]
+              if cfg.n_experts else None)
+    cache = model32.init_cache(1, DECODE_PROMPT, device="cuda")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(DECODE_PROMPT):
-        logits, cache = step(params, cache, t, toks[:, t:t + 1])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _routing(replay) as log_d:
+        t0 = time.perf_counter()
+        for t in range(DECODE_PROMPT):
+            logits, cache = step(params, cache, t, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     err = _max_diff(logits, want)
     print(f"{arch} decode fp32: {DECODE_PROMPT} teacher-forced steps (B=1) in {wall:.3f} s "
-          f"({DECODE_PROMPT / wall:.1f} tok/s); last logits vs kernel prefill max "
-          f"|diff| {err:.3e}")
+          f"({DECODE_PROMPT / wall:.1f} tok/s"
+          + ("; on the prefill's routing, the replay's few ops a layer included"
+             if cfg.n_experts else "")
+          + f"); last logits vs {'kernel' if state['use_kernel'] else 'plain'} prefill "
+          f"max |diff| {err:.3e}")
+    if cfg.n_experts:
+        _routing_check(f"{arch} decode on the prefill's routing", log_d, log_p,
+                       [DECODE_PROMPT - 1])
+    print(f"{arch} decode phase peak memory {_peak_gb()}")
     if not torch.allclose(logits, want, **DECODE_TOL):
         fail(f"{arch} decode disagrees with the prefill: max |diff| {err:.3e} beyond "
              f"{DECODE_TOL}")
 
 
 def lm_serving_phase(state: dict, arch: str) -> None:
-    """The serving CLI at full width, then the continuous batcher."""
+    """The continuous batcher on the phase's weights, then, with those
+    freed (the CLI draws its own; two copies of an MoE config's fp32
+    weights do not fit on the card), the serving CLI at full width."""
+    import gc
+
     import numpy as np
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.serving import ContinuousBatcher, Request
 
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = serve.main(["--arch", arch, "--scale", "full", "--batch", "4",
-                         "--prompt-len", "32", "--gen", "16"])
-    lines = out.getvalue().strip().splitlines()
-    for line in lines:
-        print(f"serve {arch}: {line}")
-    if rc != 0:
-        fail(f"repro_torch.launch.serve exited {rc}")
-    row = json.loads(lines[-1])
-    if not (row["decode_tok_per_s"] > 0 and row["decode_s"] > 0):
-        fail(f"serve reported no decode throughput: {row}")
-    torch.cuda.empty_cache()
-
+    torch.cuda.reset_peak_memory_stats()
     model, params = state["model"], state["params"]
     rng = np.random.default_rng(5)
     reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size,
@@ -1392,11 +1581,32 @@ def lm_serving_phase(state: dict, arch: str) -> None:
     wall = time.perf_counter() - t0
     summary = stats.summary()
     print(f"{arch} batcher: 4 slots, 8 requests (prompts {[len(r.prompt) for r in reqs]}), "
-          f"{wall:.3f} s, {summary['tokens_out'] / wall:.1f} generated tok/s: "
-          f"{json.dumps(summary)}")
+          f"{wall:.3f} s, {summary['tokens_out'] / wall:.1f} generated tok/s, peak memory "
+          f"{_peak_gb()}: {json.dumps(summary)}")
     if summary["completed"] != 8 or any(len(r.generated) != 16 for r in reqs):
         fail(f"the {arch} batcher did not answer all 8 requests with 16 tokens: "
              f"{summary}")
+
+    del batcher, params, model
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--arch", arch, "--scale", "full", "--batch", "4",
+                         "--prompt-len", "32", "--gen", "16"])
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"serve {arch}: {line}")
+    if rc != 0:
+        fail(f"repro_torch.launch.serve exited {rc}")
+    row = json.loads(lines[-1])
+    if not (row["decode_tok_per_s"] > 0 and row["decode_s"] > 0):
+        fail(f"serve reported no decode throughput: {row}")
+    print(f"serve {arch}: peak memory {_peak_gb()}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def dense_prefill_phase() -> dict:
@@ -1469,23 +1679,36 @@ def main() -> int:
     rows["segment_rowmax"]["launches_by_path"] = by_path
     torch.cuda.empty_cache()
     lm_counts, lm_state = lm_prefill_phase(LM_ARCH, ("flash_attention", "mamba_scan"),
-                                           PREFILL_TOL, seed=1)
-    counts.update(flash_attention=lm_counts["flash_attention"],
-                  mamba_scan=lm_counts["mamba_scan"])
+                                           PREFILL_TOL, seed=1, n_layers=EARLIER_LM_LAYERS)
+    counts["mamba_scan"] = lm_counts["mamba_scan"]
     lm_decode_phase(lm_state, LM_ARCH)
     lm_serving_phase(lm_state, LM_ARCH)
     del lm_state
     torch.cuda.empty_cache()
-    rows["flash_attention"]["smollm"]["launches"] = dense_prefill_phase()[
-        "flash_attention"]
+    flash_paths = {LM_ARCH: lm_counts["flash_attention"],
+                   DENSE_ARCH: dense_prefill_phase()["flash_attention"]}
     torch.cuda.empty_cache()
     rwkv_counts, rwkv_state = lm_prefill_phase(RWKV_ARCH, ("wkv6",), RWKV_PREFILL_TOL,
-                                               seed=4)
+                                               seed=4, n_layers=EARLIER_LM_LAYERS)
     counts["wkv6"] = rwkv_counts["wkv6"]
     lm_decode_phase(rwkv_state, RWKV_ARCH)
     lm_serving_phase(rwkv_state, RWKV_ARCH)
     del rwkv_state
     torch.cuda.empty_cache()
+    moe_counts, moe_state = lm_prefill_phase(MOE_ARCH, ("flash_attention",), DECODE_TOL,
+                                             seed=6)
+    flash_paths[MOE_ARCH] = moe_counts["flash_attention"]
+    lm_decode_phase(moe_state, MOE_ARCH)
+    lm_serving_phase(moe_state, MOE_ARCH)
+    del moe_state
+    torch.cuda.empty_cache()
+    _, mla_state = lm_prefill_phase(MLA_ARCH, (), None, seed=7)
+    lm_decode_phase(mla_state, MLA_ARCH)
+    lm_serving_phase(mla_state, MLA_ARCH)
+    del mla_state
+    torch.cuda.empty_cache()
+    counts["flash_attention"] = sum(flash_paths.values())
+    rows["flash_attention"]["launches_by_path"] = flash_paths
 
     for name, row in rows.items():
         print(f"bound share {name:16s} {row['dtype']:8s} kernel {row['ms']:.5f} ms, bound "

@@ -7,8 +7,9 @@ The port of ``repro.launch.serve``, with the same flags and output, plus
 ``--device`` (default ``cuda``: without a card it exits 2 unless
 ``--device cpu``). Weights come from a seeded ``torch.Generator`` on the
 device; ``--scale full`` runs the config at its published widths. Every
-family the port's registry builds serves: the dense decoder, RWKV-6 and
-Hymba.
+family the port's registry builds serves: the dense decoder, the MoE and
+MLA decoders (qwen2-moe-a2.7b, deepseek-v2-lite-16b), RWKV-6 and Hymba.
+The prompt is teacher-forced through decode steps, which run no kernel.
 """
 from __future__ import annotations
 

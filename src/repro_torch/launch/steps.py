@@ -17,8 +17,11 @@ import torch
 def make_prefill_step(model, use_kernel: bool = True) -> Callable:
     """``prefill_step(params, inputs)`` -> last-position logits (B,1,V):
     the serving prefill, with ``use_kernel`` through the model family's
-    kernels: flash-attention for the dense decoder, flash-attention and
-    selective scan for Hymba, WKV6 for RWKV-6."""
+    kernels: flash-attention for the dense and MoE decoders (qwen2-moe at
+    head dim 128), flash-attention and selective scan for Hymba, WKV6 for
+    RWKV-6. MLA (deepseek-v2-lite) has no kernel route, as in the
+    reference: it serves with ``use_kernel=False``, and with ``True`` the
+    step raises a ``ValueError``."""
 
     @torch.no_grad()
     def prefill_step(params, inputs):

@@ -1,4 +1,5 @@
-"""LM zoo of the port: the dense decoder, RWKV-6 and Hymba, config-driven."""
+"""LM zoo of the port: the dense, MoE and MLA decoder, RWKV-6 and Hymba,
+config-driven."""
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models.params import (
     ParamDef,

@@ -5,8 +5,9 @@ from repro_torch.models.config import ModelConfig
 
 
 def build(cfg: ModelConfig):
-    """The port's model for ``cfg``: the ``dense``, ``ssm`` (RWKV-6) and
-    ``hybrid`` (Hymba) families. MoE/MLA configs raise from the decoder."""
+    """The port's model for ``cfg``: the decoder for the ``dense`` and
+    ``moe`` families (MoE FFNs, MLA attention), RWKV-6 for ``ssm`` and
+    Hymba for ``hybrid``."""
     if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
 

@@ -1,24 +1,29 @@
-"""Decoder-only transformer: the dense GQA family of ``repro.models.transformer``.
+"""Decoder-only transformer: the dense, MoE and MLA families of
+``repro.models.transformer``.
 
-  * GQA attention with optional QKV bias (qwen2) and sliding window
-    (danube);
-  * dense SwiGLU FFN;
+  * GQA attention with optional QKV bias (qwen2, qwen2-moe), sliding
+    window (danube), and MLA latent attention (deepseek-v2-lite);
+  * dense SwiGLU FFN, or shared+routed MoE FFN (deepseek, qwen2-moe;
+    ``models/moe.py``) after ``first_dense_layers`` dense layers;
   * stacked layer parameters (a leading ``layers`` axis, as the reference
-    keeps them), walked by a Python loop where the reference scans;
+    keeps them: ``dense_layers``, then ``moe_layers``), walked by a Python
+    loop where the reference scans;
   * modality-stub inputs (musicgen frames / pixtral patches): the forward
     takes precomputed embeddings instead of token ids;
-  * decode path with a KV (or SWA ring-buffer) cache, updated in place.
+  * decode path with a KV (or MLA latent / SWA ring-buffer) cache,
+    updated in place.
 
 Serving only: the reference's ``remat`` (a training memory trade) has no
-role here and is dropped. MoE FFNs (``n_experts > 0``) and MLA latent
-attention (``use_mla``) come with the MoE/MLA slice of the port.
+role here and is dropped. MLA has no kernel route: its k (qk dim 192 at
+full width) and v (128) differ in width, which the reference's flash
+wrapper cannot take either, so MLA with ``use_kernel=True`` raises.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (
     ParamDef,
@@ -47,20 +52,32 @@ def _stack(schema: Schema, n: int) -> Schema:
     return rec(schema)
 
 
-def _not_ported(cfg: ModelConfig) -> None:
-    if cfg.use_mla or cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs and MLA attention are not ported yet; they "
-            f"come with the MoE/MLA slice of repro_torch.models"
-        )
+def _stacks(cfg: ModelConfig) -> list[tuple[str, int, bool]]:
+    """(parameter key, layers, use_moe) of each non-empty stack, in depth
+    order: the leading dense layers, then the MoE layers."""
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
+    stacks = [("dense_layers", cfg.n_layers - n_moe, False), ("moe_layers", n_moe, True)]
+    return [s for s in stacks if s[1]]
 
 
 # ------------------------------------------------------------ layer schemas
 def attention_schema(cfg: ModelConfig) -> Schema:
-    _not_ported(cfg)
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     H, Kv = cfg.n_heads, cfg.n_kv_heads
+    if cfg.use_mla:
+        qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {
+            "wq": ParamDef((d, H * qk_dim), ("embed", "q_fused")),
+            "w_dkv": ParamDef((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                              ("embed", None)),
+            "kv_norm": layers.rmsnorm_schema(cfg.kv_lora_rank)["scale"],
+            "w_uk": ParamDef((cfg.kv_lora_rank, H * cfg.qk_nope_dim),
+                             (None, "q_fused")),
+            "w_uv": ParamDef((cfg.kv_lora_rank, H * cfg.v_head_dim),
+                             (None, "q_fused")),
+            "wo": ParamDef((H * cfg.v_head_dim, d), ("o_fused", "embed")),
+        }
     sch: Schema = {
         "wq": ParamDef((d, H * hd), ("embed", "q_fused")),
         "wk": ParamDef((d, Kv * hd), ("embed", "kv_fused")),
@@ -74,21 +91,25 @@ def attention_schema(cfg: ModelConfig) -> Schema:
     return sch
 
 
-def block_schema(cfg: ModelConfig) -> Schema:
-    return {
+def block_schema(cfg: ModelConfig, use_moe: bool) -> Schema:
+    sch: Schema = {
         "attn_norm": layers.rmsnorm_schema(cfg.d_model),
         "attn": attention_schema(cfg),
         "ffn_norm": layers.rmsnorm_schema(cfg.d_model),
-        "mlp": layers.swiglu_schema(cfg.d_model, cfg.d_ff),
     }
+    if use_moe:
+        sch["moe"] = moe.moe_schema(cfg)
+    else:
+        sch["mlp"] = layers.swiglu_schema(cfg.d_model, cfg.d_ff)
+    return sch
 
 
 def model_schema(cfg: ModelConfig) -> Schema:
-    _not_ported(cfg)
     sch: Schema = {}
     if not cfg.stub_frontend:
         sch["embed"] = layers.embedding_schema(cfg.padded_vocab, cfg.d_model)
-    sch["dense_layers"] = _stack(block_schema(cfg), cfg.n_layers)
+    for key, n, use_moe in _stacks(cfg):
+        sch[key] = _stack(block_schema(cfg, use_moe), n)
     sch["final_norm"] = layers.rmsnorm_schema(cfg.d_model)
     n_heads_out = max(cfg.num_codebooks, 1)
     if not cfg.tie_embeddings or cfg.stub_frontend:
@@ -117,8 +138,55 @@ def _qkv(params, x, cfg: ModelConfig, positions):
     return q, k, v.reshape(B, S, cfg.n_kv_heads, hd)
 
 
+def _mla_q_latent(params, x, cfg: ModelConfig, positions):
+    """MLA's query (B,S,H,nope+rope), its rope part rotated, and the new
+    latents: the normed c_kv (B,S,rank) and the rotated shared k_rope head
+    (B,S,1,rope)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(
+        B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    q = torch.cat([q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+    c_kv, k_rope = torch.split(x @ params["w_dkv"].to(dt),
+                               [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    c_kv = layers.rmsnorm({"scale": params["kv_norm"]}, c_kv, cfg.norm_eps)
+    k_rope = layers.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q, c_kv, k_rope
+
+
+def _mla_kv(params, c_kv, k_rope, cfg: ModelConfig):
+    """K (B,C,H,nope+rope) and V (B,C,H,v) rebuilt from latents c_kv
+    (B,C,rank) and the shared k_rope head (B,C,1,rope)."""
+    B, C, _ = c_kv.shape
+    H, dt = cfg.n_heads, c_kv.dtype
+    k_nope = (c_kv @ params["w_uk"].to(dt)).reshape(B, C, H, cfg.qk_nope_dim)
+    v = (c_kv @ params["w_uv"].to(dt)).reshape(B, C, H, cfg.v_head_dim)
+    k = torch.cat([k_nope, k_rope.expand(B, C, H, cfg.qk_rope_dim)], dim=-1)
+    return k, v
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
 def attention_block(params, x, cfg: ModelConfig, positions, use_kernel=False):
     B, S, _ = x.shape
+    if cfg.use_mla:
+        if use_kernel:
+            raise ValueError(
+                f"{cfg.name}: MLA attention has no kernel route: its k (qk dim "
+                f"{cfg.qk_nope_dim + cfg.qk_rope_dim}) and v (dim {cfg.v_head_dim}) "
+                f"differ in width, which the flash-attention kernel cannot take, "
+                f"and the reference cannot take this route either "
+                f"(repro/kernels/ops.py reshapes v to q's head dim); serve MLA "
+                f"with use_kernel=False")
+        q, c_kv, k_rope = _mla_q_latent(params, x, cfg, positions)
+        k, v = _mla_kv(params, c_kv, k_rope, cfg)
+        out = layers.attention(q, k, v, window=cfg.sliding_window,
+                               scale=_mla_scale(cfg))
+        out = out.reshape(B, S, cfg.n_heads * cfg.v_head_dim)
+        return out @ params["wo"].to(x.dtype)
     q, k, v = _qkv(params, x, cfg, positions)
     out = layers.attention(q, k, v, window=cfg.sliding_window,
                            use_kernel=use_kernel)
@@ -126,11 +194,20 @@ def attention_block(params, x, cfg: ModelConfig, positions, use_kernel=False):
     return out @ params["wo"].to(x.dtype)
 
 
+def _ffn(params, h, cfg: ModelConfig):
+    """The block's FFN on the normed h: (out, aux), aux 0.0 when dense."""
+    if "moe" in params:
+        return moe.moe_apply(params["moe"], h, cfg)
+    return layers.swiglu(params["mlp"], h), 0.0
+
+
 def block_apply(params, x, cfg: ModelConfig, positions, use_kernel: bool = False):
+    """One block: attention, then the dense or MoE FFN -> (x, aux)."""
     h = layers.rmsnorm(params["attn_norm"], x, cfg.norm_eps)
     x = x + attention_block(params["attn"], h, cfg, positions, use_kernel)
     h = layers.rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-    return x + layers.swiglu(params["mlp"], h)
+    y, aux = _ffn(params, h, cfg)
+    return x + y, aux
 
 
 def _head_table(params):
@@ -147,9 +224,9 @@ def _cache_update(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Te
 
 # ------------------------------------------------------------- full forward
 class DecoderLM(nn.Module):
-    """The dense decoder. Parameters are a nested dict of tensors passed to
-    every call, as in the reference; the module holds the config and the
-    schema."""
+    """The dense, MoE and MLA decoder. Parameters are a nested dict of
+    tensors passed to every call, as in the reference; the module holds
+    the config and the schema."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -161,10 +238,17 @@ class DecoderLM(nn.Module):
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         return init_params(self.schema, generator, device)
 
+    def _blocks(self, params):
+        """Each layer's parameters in depth order, across both stacks."""
+        for key, n, _ in _stacks(self.cfg):
+            for i in range(n):
+                yield layer(params[key], i)
+
     # ------------------------------------------------------------- forward
     @torch.no_grad()
     def hidden_states(self, params, inputs, *, use_kernel=False):
-        """inputs: token ids (B,S), or embeddings (B,S,D) for stubs."""
+        """inputs: token ids (B,S), or embeddings (B,S,D) for stubs ->
+        (final hidden states, the MoE layers' summed aux loss)."""
         cfg = self.cfg
         dt = _dtype(cfg)
         if cfg.stub_frontend:
@@ -173,11 +257,12 @@ class DecoderLM(nn.Module):
             x = layers.embed(params["embed"], inputs, dt)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        stacked = params["dense_layers"]
-        for i in range(cfg.n_layers):
-            x = block_apply(layer(stacked, i), x, cfg, positions, use_kernel)
+        aux_total = 0.0
+        for p in self._blocks(params):
+            x, aux = block_apply(p, x, cfg, positions, use_kernel)
+            aux_total = aux_total + aux
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return x, 0.0
+        return x, aux_total
 
     def _unembed(self, params, x):
         cfg = self.cfg
@@ -199,11 +284,16 @@ class DecoderLM(nn.Module):
 
     # -------------------------------------------------------------- decode
     def cache_spec(self, batch: int, max_len: int) -> dict:
-        """KV cache shapes and dtypes (ring buffer when sliding window)."""
+        """Cache shapes and dtypes: K and V (a ring buffer when sliding
+        window), or MLA's latents ``ckv`` and ``krope``."""
         cfg = self.cfg
         C = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-        shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}
+        dt, L = _dtype(cfg), cfg.n_layers
+        if cfg.use_mla:
+            return {"ckv": ((L, batch, C, cfg.kv_lora_rank), dt),
+                    "krope": ((L, batch, C, cfg.qk_rope_dim), dt)}
+        shape = (L, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
         return {k: torch.zeros(shape, dtype=dt, device=device)
@@ -213,7 +303,8 @@ class DecoderLM(nn.Module):
     def decode_step(self, params, cache, pos: int, token_or_embed, *,
                     use_kernel=False):
         """One decode step. pos: tokens already in the cache. The cache is
-        updated in place and returned."""
+        updated in place and returned; one layer index runs through the
+        dense prefix and the MoE suffix."""
         cfg = self.cfg
         dt = _dtype(cfg)
         if cfg.stub_frontend:
@@ -221,22 +312,30 @@ class DecoderLM(nn.Module):
         else:
             x = layers.embed(params["embed"], token_or_embed, dt)  # (B,1,D)
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-        C = cache["k"].shape[2]
+        C = next(iter(cache.values())).shape[2]
         slot = pos % C if cfg.sliding_window > 0 else min(pos, C - 1)
-        stacked = params["dense_layers"]
-        for i in range(cfg.n_layers):
-            p = layer(stacked, i)
+        for i, p in enumerate(self._blocks(params)):
             h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
             attn_out = self._decode_attention(
                 p["attn"], h, cfg, positions, pos, slot, layer(cache, i))
             x = x + attn_out
             h = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-            x = x + layers.swiglu(p["mlp"], h)
+            x = x + _ffn(p, h, cfg)[0]
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._unembed(params, x), cache
 
     def _decode_attention(self, params, x, cfg, positions, pos, slot, cache):
         B = x.shape[0]
+        if cfg.use_mla:
+            q, c_kv, k_rope = _mla_q_latent(params, x, cfg, positions)
+            ckv_cache = _cache_update(cache["ckv"], c_kv[:, 0], slot)
+            kr_cache = _cache_update(cache["krope"], k_rope[:, 0, 0], slot)
+            # K and V rebuilt from every cached latent, each step.
+            k, v = _mla_kv(params, ckv_cache, kr_cache[:, :, None, :], cfg)
+            out = layers.decode_attention(q, k, v, pos, window=cfg.sliding_window,
+                                          scale=_mla_scale(cfg))
+            out = out.reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
+            return out @ params["wo"].to(x.dtype)
         q, k, v = _qkv(params, x, cfg, positions)
         k_cache = _cache_update(cache["k"], k[:, 0], slot)
         v_cache = _cache_update(cache["v"], v[:, 0], slot)

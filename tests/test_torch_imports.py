@@ -30,8 +30,8 @@ for needed in sys.argv[2:]:
 print("imported", len(names))
 """
 
-# The LM serving slices and the tuner's service and fault layers: every
-# module must be among those imported.
+# The LM serving stack (MoE and MLA included) and the tuner's service
+# and fault layers: every module must be among those imported.
 LM_MODULES = [
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
     "repro_torch.models", "repro_torch.models.config",
@@ -47,6 +47,8 @@ LM_MODULES = [
     "repro_torch.serving.mapsvc", "repro_torch.serving.serve",
     "repro_torch.search.remap", "repro_torch.core.autosharder",
     "repro_torch.runtime", "repro_torch.runtime.resilience",
+    "repro_torch.models.moe", "repro_torch.models.sharding",
+    "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.deepseek_v2_lite_16b",
 ]
 
 

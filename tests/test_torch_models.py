@@ -50,9 +50,9 @@ _PAIRS = {}
 
 def _pair(arch, **widths):
     """(JAX model, JAX params, port model, port params) for the reduced
-    fp32 config (with ``widths`` replaced, e.g. a wider d_model); qwen2's
-    zero-initialized QKV biases get random values in both, so that the
-    bias path is exercised."""
+    fp32 config (with ``widths`` replaced, e.g. a wider d_model); the
+    zero-initialized QKV biases (qwen2, qwen2-moe) get random values in
+    both, so that the bias path is exercised."""
     key = (arch, tuple(sorted(widths.items())))
     if key not in _PAIRS:
         jcfg = dataclasses.replace(jax_config(arch).reduced(), dtype="float32",
@@ -61,7 +61,7 @@ def _pair(arch, **widths):
                                    **widths)
         jm, tm = jax_build(jcfg), build(tcfg)
         tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
-        for stack in ("dense_layers", "layers"):
+        for stack in ("dense_layers", "moe_layers", "layers"):
             attn = tree.get(stack, {}).get("attn", {})
             for i, name in enumerate(("bq", "bk", "bv")):
                 if name in attn:
@@ -153,7 +153,8 @@ def test_swiglu_and_unembed_match_jax():
 # ------------------------------------------------------------------- models
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-7b", "h2o-danube-1.8b",
                                   "granite-3-2b", "musicgen-medium",
-                                  "pixtral-12b", "hymba-1.5b", "rwkv6-3b"])
+                                  "pixtral-12b", "hymba-1.5b", "rwkv6-3b",
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
 def test_param_count_matches_jax_at_full_width(arch):
     assert build(get_config(arch)).n_params == jax_build(jax_config(arch)).n_params
 
@@ -216,7 +217,9 @@ RWKV = [("rwkv6-3b", {}), ("rwkv6-3b", {"d_model": 128})]
 
 @pytest.mark.parametrize("arch,widths", [("smollm-135m", {}), ("qwen2-7b", {}),
                                          ("h2o-danube-1.8b", {}),
-                                         ("hymba-1.5b", {}), *RWKV])
+                                         ("hymba-1.5b", {}), *RWKV,
+                                         ("qwen2-moe-a2.7b", {}),
+                                         ("deepseek-v2-lite-16b", {})])
 def test_decode_step_matches_jax(arch, widths):
     jm, jp, tm, tp = _pair(arch, **widths)
     B, S = 2, 6
@@ -243,14 +246,15 @@ def test_decode_step_matches_jax(arch, widths):
 
 @pytest.mark.parametrize("arch,S,widths", [
     ("smollm-135m", 12, {}), ("qwen2-7b", 12, {}), ("h2o-danube-1.8b", 80, {}),
-    ("hymba-1.5b", 80, {}), ("rwkv6-3b", 40, {}), ("rwkv6-3b", 40, {"d_model": 128})])
+    ("hymba-1.5b", 80, {}), ("rwkv6-3b", 40, {}), ("rwkv6-3b", 40, {"d_model": 128}),
+    ("qwen2-moe-a2.7b", 12, {}), ("deepseek-v2-lite-16b", 12, {})])
 def test_decode_matches_forward(arch, S, widths):
     """Teacher-forced decode reproduces the forward logits (through the
-    kernels' plain versions); at S = 80 the SWA configs' ring buffers
-    (capacity 64) wrap."""
+    kernels' plain versions; MLA has none, so deepseek's forward is
+    plain); at S = 80 the SWA configs' ring buffers (capacity 64) wrap."""
     _, _, tm, tp = _pair(arch, **widths)
     _, tin = _inputs(tm.cfg, 1, S, seed=2)
-    full, _ = tm.logits(tp, tin, use_kernel=True)
+    full, _ = tm.logits(tp, tin, use_kernel=not tm.cfg.use_mla)
     cache = tm.init_cache(1, S, device="cpu")
     outs = []
     for t in range(S):
@@ -287,10 +291,68 @@ def test_init_params_is_seeded_and_shaped():
     assert tm.cfg.sliding_window == 64
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-moe-a2.7b"])
-def test_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build(get_config(arch).reduced())
+# ---------------------------------------------------------------- MoE, MLA
+MOE = ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("S", [32, 384])
+def test_moe_decoder_logits_match_jax(arch, S):
+    """Logits, last logits and the summed aux loss of the MoE decoders; at
+    B=2, S=384 the 768 tokens pass EXACT_DISPATCH_MAX_TOKENS, so the
+    fixed capacity applies."""
+    jm, jp, tm, tp = _pair(arch)
+    jin, tin = _inputs(tm.cfg, 2, S, seed=5)
+    jl, jaux = jm.logits(jp, jin, remat=False)
+    tl, taux = tm.logits(tp, tin)
+    assert tl.shape == jl.shape
+    _close(tl, jl, FWD)
+    _close(taux, jaux, FWD)
+    _close(tm.last_logits(tp, tin), jm.last_logits(jp, jin, remat=False), FWD)
+
+
+def test_moe_stacks_follow_the_reference():
+    """deepseek: one dense layer then the MoE layers, MLA weights and the
+    latent cache; qwen2-moe: MoE layers only, GQA with biases."""
+    for arch in MOE:
+        jm, _, tm, tp = _pair(arch)
+        jshapes = jax.tree.map(lambda s: s.shape, jm.abstract())
+        assert jax.tree.map(lambda t: tuple(t.shape), tp) == jshapes
+        cache = tm.init_cache(3, 16, device="cpu")
+        assert {k: tuple(v.shape) for k, v in cache.items()} == {
+            k: tuple(v.shape) for k, v in jm.init_cache(3, 16).items()}
+    assert set(_pair("deepseek-v2-lite-16b")[2].schema) >= {"dense_layers", "moe_layers"}
+    assert "dense_layers" not in _pair("qwen2-moe-a2.7b")[2].schema
+    assert set(_pair("deepseek-v2-lite-16b")[2].init_cache(1, 4, device="cpu")) == {
+        "ckv", "krope"}
+
+
+def test_qwen2_moe_kernel_prefill_matches_pallas():
+    """``use_kernel`` (flash's plain version here) against ``use_pallas``
+    (the Pallas kernel in interpret mode), through the prefill step."""
+    jm, jp, tm, tp = _pair("qwen2-moe-a2.7b")
+    jin, tin = _inputs(tm.cfg, 2, 128, seed=6)
+    expect = jm.last_logits(jp, jin, use_pallas=True, remat=False)
+    _close(make_prefill_step(tm)(tp, tin), expect, FWD)
+    jl, _ = jm.logits(jp, jin, use_pallas=True, remat=False)
+    _close(tm.logits(tp, tin, use_kernel=True)[0], jl, FWD)
+    assert ops.launch_counts()["flash_attention"] == 0     # plain on the CPU
+
+
+def test_mla_refuses_the_kernel_route():
+    """deepseek with ``use_kernel=True`` raises a ValueError naming MLA,
+    before any work; the reference's ``use_pallas=True`` fails too (a
+    TypeError: its wrapper reshapes v to q's head dim)."""
+    jm, jp, tm, tp = _pair("deepseek-v2-lite-16b")
+    jin, tin = _inputs(tm.cfg, 2, 32, seed=7)
+    with pytest.raises(ValueError, match="MLA"):
+        make_prefill_step(tm)(tp, tin)
+    with pytest.raises(ValueError, match="MLA"):
+        tm.logits(tp, tin, use_kernel=True)
+    with pytest.raises(TypeError):
+        jm.last_logits(jp, jin, use_pallas=True, remat=False)
+    _close(make_prefill_step(tm, use_kernel=False)(tp, tin),
+           jm.last_logits(jp, jin, remat=False), FWD)
 
 
 def test_configs_are_the_jax_packages():

@@ -111,7 +111,30 @@ def test_batcher_gives_the_jax_batchers_tokens_for_rwkv6():
     assert tstats.completed == 5
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "hymba-1.5b", "rwkv6-3b"])
+def test_batcher_gives_the_jax_batchers_tokens_for_qwen2_moe():
+    """The MoE decoder through the slot pool (each step routes one token,
+    so at exact capacity): the JAX batcher's tokens on the same weights."""
+    jm = jax_build(jax_config("qwen2-moe-a2.7b").reduced())
+    jp = jm.init(jax.random.key(2))
+    tm = build(get_config("qwen2-moe-a2.7b").reduced())
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    vocab = tm.cfg.vocab_size
+    jreqs, treqs = _requests(JaxRequest, vocab, n=5, seed=4), _requests(Request, vocab,
+                                                                         n=5, seed=4)
+    jb = JaxBatcher(jm, jp, n_slots=2, max_len=24)
+    tb = ContinuousBatcher(tm, tp, n_slots=2, max_len=24, device="cpu")
+    for jr, tr in zip(jreqs, treqs):
+        jb.submit(jr)
+        tb.submit(tr)
+    jstats, tstats = jb.run_until_drained(), tb.run_until_drained()
+    assert [r.generated for r in treqs] == [r.generated for r in jreqs]
+    assert (tstats.completed, tstats.steps, tstats.tokens_out) == (
+        jstats.completed, jstats.steps, jstats.tokens_out)
+    assert tstats.completed == 5
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "hymba-1.5b", "rwkv6-3b",
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
 def test_serve_cli_on_cpu(arch):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
