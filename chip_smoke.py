@@ -65,10 +65,10 @@ NVIDIA H100:
    hymba prefill (B=4, T=2048, d_inner 3200, state 16), a ragged one and
    its tile edges (``MAMBA_EDGES``), fp32 (1e-4), timed beside the
    exponentials' MUFU floor;
-10. drives the LM serving path at hymba-1.5b's full width (at 16 of its
+10. drives the LM serving path at hymba-1.5b's full width (at 8 of its
    32 layers, ``EARLIER_LM_LAYERS``; weights from a seeded generator on
    the card): the prefill step with the kernels (B=4, prompt 2048 > the
-   1024 window), counters set to 0 just before and read just after (16
+   1024 window), counters set to 0 just before and read just after (8
    launches of each kernel); in fp32 its
    last logits against the plain prefill (rtol 1e-2, atol 5e-2, the
    mixer tolerance of tests/test_kernels.py), beside it the bf16 kernel
@@ -84,11 +84,11 @@ NVIDIA H100:
    rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64), at a ragged T,
    at head sizes 32 and 16 and at its tile edges (``WKV6_EDGES``), and
    times it at the prefill shape;
-12. drives RWKV-6 serving at rwkv6-3b's full width (16 of its 32 layers,
+12. drives RWKV-6 serving at rwkv6-3b's full width (8 of its 32 layers,
    d_model 2560, d_ff 8960, vocabulary 65536; parameters drawn from a
    seed, fp32 on the card, after hymba's are freed): the prefill step with
    the wkv6 kernel (B=4, prompt 2048), counters set to 0 just before and
-   read just after (16 launches); in fp32 its last logits against the
+   read just after (8 launches); in fp32 its last logits against the
    plain prefill (the per-step scan) within a max |diff| of 1e-3, the bf16
    difference reported, and the median bf16 prefill wall time with and
    without the kernel; a 256-token prompt teacher-forced through
@@ -113,7 +113,24 @@ NVIDIA H100:
    decode check, batcher and CLI as in 12; phases 10, 12, 13 and 14 print
    their peak memory, and each frees its weights before the serving CLI
    draws its own (two copies of an MoE model do not fit on the card);
-15. prints one JSON ``kernels`` line (matmul and stencil launches from the
+15. drives the training path (no kernel: the plain path, as the reference
+   trains): the loop's train step on the card against the same step on
+   the CPU on reduced fp32 smollm-135m (three steps, each from the CPU's
+   state: losses within 1e-4, new parameters within 1e-4 wherever the
+   two devices' gradients agree within 1%); at smollm-135m's full width,
+   the accumulated step at n_micro 2 against 1 on one 2 x 4096 batch
+   (loss 1e-4, grad norm 1e-3 relative); the main run, smollm-135m at
+   full width and depth, B=16, S=4096 (train_4k's sequence, the batch cut
+   from 256 for one card), 8 steps through ``launch.steps``' accumulated
+   step with ``choose_microbatches``' 8, counters set to 0 just before
+   and read just after (0 launches), finite losses, step 0 within 0.5 of
+   ln(49152), step time, tokens/s, peak memory and model-FLOP share; the
+   training CLI at full width (12 steps, B=8, S=2048, checkpoints every
+   4) with a failure at step 9: one restart, from step 8, its losses
+   within 1e-6 of an uninterrupted run's; ``use_kernel=True`` under
+   autograd raising for flash, mamba_scan and wkv6 with no launch; one
+   step each of hymba-1.5b and rwkv6-3b at full width and 2 layers;
+16. prints one JSON ``kernels`` line (matmul and stencil launches from the
    execute path, segment_rowmax launches from the tune path and, by path,
    from phases 5-8, flash_attention launches summed over the hymba,
    smollm and qwen2-moe prefills and by path, mamba_scan launches from
@@ -129,6 +146,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -244,12 +262,44 @@ MLA_ARCH = "deepseek-v2-lite-16b"
 # reported. A flip is allowed only at a near-tie: the replayed expert
 # within FLIP_TOL (router probability) of this run's own top-k.
 FLIP_TOL = 1e-4
-# hymba-1.5b's and rwkv6-3b's paths run at 16 of their 32 layers, at their
-# published widths: with the MoE and MLA phases the command would take
-# about 625 s at full depth, past half its 1200 s limit, and their plain
-# prefills and batchers (host-bound, per layer) are most of their time.
-# The serving CLI still builds them at full depth.
-EARLIER_LM_LAYERS = 16
+# hymba-1.5b's and rwkv6-3b's paths run at 8 of their 32 layers, at their
+# published widths: their plain prefills and batchers (host-bound, per
+# layer) are most of their time, and with the MoE, MLA and train phases
+# the command took 638 s at 16 layers (PERF.md §6), past
+# half its 1200 s limit. The serving CLI still builds them at full depth.
+EARLIER_LM_LAYERS = 8
+# The train phase: smollm-135m at full width and depth (the reference
+# launcher's example architecture), train_4k's sequence of 4096 with the
+# global batch cut from 256 to 16 for one card, through launch.steps'
+# accumulated step, for which choose_microbatches picks 8 on one card.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 16, 4096, 8, 8
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)    # card against CPU, reduced fp32
+# On these random weights fp32 gradients sit up to 1.1e-4 of a leaf's
+# largest entry from float64 ones (tools/train_numerics.py), and the two
+# devices' up to 1.6e-4 from each other (PERF.md §6): each leaf's gradients
+# are held within GRAD_TOL of its largest entry. AdamW moves an entry by about
+# lr * m / sqrt(v), lr * sign(g) at a first step, so an entry whose
+# gradient the two devices do not agree on moves up to 2 lr apart, and a
+# trajectory that diverges there changes every later gradient. So each of
+# the three steps starts the card from the CPU's state; its loss is held
+# within TRAIN_TOL, and its new parameters too at every entry whose
+# gradients agree within ADAM_REL (relative). The other entries may be at
+# most ADAM_LOOSE_SHARE of each leaf's (entry, step) pairs (fp32 against
+# float64: at most 0.36% of a leaf's, tools/train_numerics.py on the CPU).
+# The card's AdamW update is held on the CPU's gradients too, at every
+# entry.
+GRAD_TOL = 5e-4
+ADAM_REL, ADAM_LOOSE_SHARE = 1e-2, 2e-2
+ACCUM_LOSS_RTOL, ACCUM_GNORM_RTOL = 1e-4, 1e-3
+LOSS0_SLACK = 0.5                         # step 0 against ln(vocab)
+RESTART_RTOL = 1e-6
+# The launcher's restart run, and one step of the other families at their
+# published widths and 2 layers (their plain recurrences loop over time).
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps", "12", "--batch", "8",
+             "--seq", "2048", "--save-every", "4"]
+TRAIN_FAIL_AT = 9
+TRAIN_OTHER, TRAIN_OTHER_LAYERS, TRAIN_OTHER_SHAPE = ("hymba-1.5b", "rwkv6-3b"), 2, (2, 256)
 
 
 def fail(msg: str) -> None:
@@ -1636,6 +1686,334 @@ def dense_prefill_phase() -> dict:
     return counts
 
 
+def _leaves_cpu(tree) -> list:
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+
+    # A copy: on the CPU .cpu() would alias tensors the step updates in place.
+    return [t.detach().to("cpu", torch.float32, copy=True) for t in tree_leaves(tree)]
+
+
+def _zero_launches(what: str) -> None:
+    from repro_torch.kernels import ops
+
+    if any(ops.launch_counts().values()):
+        fail(f"{what}: kernels launched while training: {ops.launch_counts()}")
+
+
+def train_parity_phase() -> None:
+    """The loop's train step on the card against the same step on the CPU:
+    reduced fp32 smollm-135m, parameters carried through numpy, the same
+    batches, TF32 off; three steps, each from the CPU run's state, held
+    as GRAD_TOL, TRAIN_TOL and ADAM_REL say, and the card's AdamW update
+    on the CPU's gradients; no kernel launched."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, params_from_numpy
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training import AdamWConfig, TrainState, make_train_step
+    from repro_torch.training import optimizer
+    from repro_torch.training.loop import value_and_grad
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = build(cfg)
+    tree = tree_map(lambda t: t.numpy(),
+                    model.init(torch.Generator().manual_seed(0), device="cpu"))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 8, seed=1), device="cpu")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(model, opt_cfg)
+    params = params_from_numpy(tree, "cpu")
+    state = TrainState(params, optimizer.init(params))
+    n_leaves = len(tree_leaves(params))
+    sizes = [t.numel() for t in tree_leaves(params)]
+    loose = [0] * n_leaves
+    worst_grad = worst = worst_update = 0.0
+    beyond = beyond_update = 0
+    losses = []
+    ops.reset_launch_counts()
+    for i in range(3):
+        def copy_to(dev):
+            return TrainState.from_tree(tree_map(lambda t: t.detach().to(dev, copy=True),
+                                                 state.as_tree()))
+        card, shared, shared_cpu = copy_to("cuda"), copy_to("cuda"), copy_to("cpu")
+        batch = data.batch(i)
+        card_batch = {k: v.to("cuda") for k, v in batch.items()}
+        got = {}
+        for dev, st, b in (("cpu", state, batch), ("cuda", card, card_batch)):
+            _, g = value_and_grad(lambda p: model.loss(p, b), st.params)
+            new, m = step(st, b)
+            got[dev] = float(m["loss"]), g, _leaves_cpu(new.params), new
+        (l_cpu, g_cpu, p_cpu, state), (l_gpu, g_gpu, p_gpu, _) = got["cpu"], got["cuda"]
+        losses.append((l_gpu, l_cpu))
+        # AdamW on the CPU's gradients, on both devices: every entry.
+        optimizer.update(opt_cfg, g_cpu, shared_cpu.opt, shared_cpu.params)
+        optimizer.update(opt_cfg, tree_map(lambda t: t.to("cuda"), g_cpu), shared.opt,
+                         shared.params)
+        for a, b in zip(_leaves_cpu(shared_cpu.params), _leaves_cpu(shared.params)):
+            worst_update = max(worst_update, _max_diff(b, a))
+            beyond_update += int((~torch.isclose(b, a, **TRAIN_TOL)).sum())
+        for j, (a, b, pa, pb) in enumerate(zip(_leaves_cpu(g_cpu), _leaves_cpu(g_gpu),
+                                               p_cpu, p_gpu)):
+            worst_grad = max(worst_grad, _max_diff(b, a) / float(a.abs().max()))
+            ok = (b - a).abs() <= ADAM_REL * a.abs()
+            loose[j] += int((~ok).sum())
+            worst = max(worst, _max_diff(pb[ok], pa[ok]))
+            beyond += int((~torch.isclose(pb, pa, **TRAIN_TOL))[ok].sum())
+        del card, shared, shared_cpu, got
+    _zero_launches("card against CPU")
+    share = max(n / (3 * size) for n, size in zip(loose, sizes))
+    print(f"train parity (reduced fp32 {TRAIN_ARCH}, 3 steps from the CPU's state, B=8, "
+          f"S=64): losses (card, CPU) {losses}; gradients max |diff| {worst_grad:.3e} of "
+          f"their leaf's largest (limit {GRAD_TOL:g}); (entry, step) pairs with gradients "
+          f"more than {ADAM_REL:g} apart, by leaf: {loose} (largest share {share:.3%}, "
+          f"limit {ADAM_LOOSE_SHARE:.0%} of each leaf's); the rest: new parameters max "
+          f"|diff| {worst:.3e}, {beyond} beyond {TRAIN_TOL}; the card's update on the CPU's "
+          f"gradients: max |diff| {worst_update:.3e}, {beyond_update} beyond")
+    if beyond or beyond_update or worst_grad > GRAD_TOL or share > ADAM_LOOSE_SHARE or not all(
+            math.isclose(a, b, rel_tol=TRAIN_TOL["rtol"], abs_tol=TRAIN_TOL["atol"])
+            for a, b in losses):
+        fail("the card's train step disagrees with the CPU's")
+    if int(state.opt.step) != 3:
+        fail("the CPU run did not take three steps")
+
+
+def _train_data(cfg, batch: int, seq: int, seed: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+
+    return SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch, seed=seed), device="cuda")
+
+
+def train_accumulation_phase(model, params) -> None:
+    """One batch of 2 x TRAIN_SEQ at full width: the accumulated step at
+    n_micro=2 against n_micro=1, each on its own copy of the parameters
+    (the step updates them in place): loss and grad norm."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.params import tree_map
+    from repro_torch.training import TrainState
+    from repro_torch.training import optimizer
+
+    shape = ShapeConfig("train", TRAIN_SEQ, 2, "train")
+    batch = _train_data(model.cfg, 2, TRAIN_SEQ, seed=11).batch(0)
+    got = {}
+    for n in (1, 2):
+        copy = tree_map(lambda t: t.detach().clone(), params)
+        _, m = steps.make_train_step(model, shape, n_micro=n)(
+            TrainState(copy, optimizer.init(copy)), batch)
+        got[n] = float(m["loss"]), float(m["grad_norm"])
+        del copy
+    (l1, g1), (l2, g2) = got[1], got[2]
+    print(f"train accumulation ({TRAIN_ARCH} full width, B=2, S={TRAIN_SEQ}): n_micro=1 "
+          f"loss {l1:.6f} grad norm {g1:.6f}; n_micro=2 loss {l2:.6f} grad norm {g2:.6f}; "
+          f"relative {abs(l2 - l1) / abs(l1):.3e} and {abs(g2 - g1) / abs(g1):.3e}")
+    if abs(l2 - l1) > ACCUM_LOSS_RTOL * abs(l1) or abs(g2 - g1) > ACCUM_GNORM_RTOL * abs(g1):
+        fail(f"accumulation over 2 microbatches disagrees with one batch beyond "
+             f"{ACCUM_LOSS_RTOL:g} (loss) / {ACCUM_GNORM_RTOL:g} (grad norm)")
+    torch.cuda.empty_cache()
+
+
+def train_main_phase(smi: str) -> None:
+    """smollm-135m at full width and depth, B=TRAIN_BATCH, S=TRAIN_SEQ,
+    TRAIN_STEPS steps through launch.steps' accumulated train step, with
+    the counters set to 0 just before and read just after; step time
+    (median of steps 2 to last), tokens/s, peak memory and the model-FLOP
+    share of the card's bf16 peak."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.config import SHAPES
+    from repro_torch.training import TrainState
+    from repro_torch.training import optimizer
+
+    model = _full(TRAIN_ARCH, "bfloat16")
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    train_accumulation_phase(model, params)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    n_micro = steps.choose_microbatches(cfg, shape)
+    if n_micro != TRAIN_MICRO:
+        fail(f"choose_microbatches picked {n_micro} for {TRAIN_ARCH} at B={TRAIN_BATCH}, "
+             f"S={TRAIN_SEQ}, not {TRAIN_MICRO}")
+    step = steps.make_train_step(model, shape)
+    data = _train_data(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    state = TrainState(params, optimizer.init(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    walls, rows = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    launches = dict(ops.launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(walls[1:])
+    attn = cfg.n_heads * cfg.resolved_head_dim
+    flops = 6 * model.n_params * tokens + 12 * cfg.n_layers * attn * TRAIN_SEQ * tokens
+    print(f"train {TRAIN_ARCH} full width and depth ({model.n_params} parameters, fp32 "
+          f"weights, bf16 activations), B={TRAIN_BATCH}, S={TRAIN_SEQ}, n_micro={n_micro}: "
+          f"losses {[round(r[0], 5) for r in rows]}, grad norms "
+          f"{[round(r[1], 5) for r in rows]}; launches {launches}")
+    print(f"train {TRAIN_ARCH}: step wall s {[round(w, 4) for w in walls]}; median of steps "
+          f"2-{TRAIN_STEPS} {med:.4f} s, {tokens / med:.1f} tokens/s, peak memory "
+          f"{peak:.2f} GB, model FLOPs {flops:.4e} a step (6 N T + 12 L H hd S T), "
+          f"{flops / med / PEAK_OPS['bfloat16']:.2%} of the bf16 peak; on {smi}")
+    if not all(math.isfinite(x) for r in rows for x in r):
+        fail("a training loss or grad norm is not finite")
+    if abs(rows[0][0] - math.log(cfg.padded_vocab)) > LOSS0_SLACK:
+        fail(f"step-0 loss {rows[0][0]:.4f} is not within {LOSS0_SLACK} of "
+             f"ln({cfg.padded_vocab}) = {math.log(cfg.padded_vocab):.4f}")
+    if any(launches.values()):
+        fail(f"the train steps launched kernels: {launches}")
+    del state, params, model
+    torch.cuda.empty_cache()
+
+
+def train_launcher_phase() -> None:
+    """``repro_torch.launch.train`` at full width with checkpoints every 4
+    steps and a failure injected at step TRAIN_FAIL_AT: one restart, and
+    the restarted steps' losses within RESTART_RTOL of an uninterrupted
+    run's on the same seed."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    whole, _ = train_cli.train(train_cli.parse_args(TRAIN_CLI))
+    by_step = {h["step"]: h["loss"] for h in whole}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            after, summary = train_cli.train(train_cli.parse_args(
+                TRAIN_CLI + ["--ckpt-dir", d, "--fail-at", str(TRAIN_FAIL_AT)]))
+        wall = time.perf_counter() - t0
+    for line in out.getvalue().strip().splitlines() + [json.dumps(summary)]:
+        print(f"train CLI: {line}")
+    restarts = out.getvalue().count("restarting from latest checkpoint")
+    worst = max(abs(h["loss"] - by_step[h["step"]]) / abs(by_step[h["step"]])
+                for h in after)
+    print(f"train CLI restart: {restarts} restart(s), steps {[h['step'] for h in after]} "
+          f"after it, largest relative loss difference from the uninterrupted run "
+          f"{worst:.3e} (limit {RESTART_RTOL:g}); restart run wall {wall:.1f} s")
+    if restarts != 1 or [h["step"] for h in after] != list(range(8, 12)):
+        fail("the launcher did not restart once from the step-8 checkpoint")
+    if worst > RESTART_RTOL:
+        fail("the restarted losses differ from the uninterrupted run's: the checkpoint "
+             "lost state")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_guard_phase() -> None:
+    """use_kernel=True under autograd: the flash (smollm), selective scan
+    (Hymba's mixer) and WKV6 (RWKV-6) entry points raise, launching
+    nothing."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.hymba import mamba_mixer
+    from repro_torch.models.params import tree_leaves
+
+    def reduced(arch):
+        model = build(get_config(arch).reduced())
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        return model, params
+
+    toks = _tokens(get_config(TRAIN_ARCH).reduced(), 2, 64, seed=2)
+    batch = {"inputs": toks, "labels": toks}
+    smollm, sp = reduced(TRAIN_ARCH)
+    rwkv, rp = reduced(RWKV_ARCH)
+    hymba, hp = reduced(LM_ARCH)
+    x = torch.randn((2, 64, hymba.cfg.d_model), device="cuda")
+    calls = {"flash_attention": lambda: smollm.loss(sp, batch, use_kernel=True),
+             "wkv6": lambda: rwkv.loss(rp, batch, use_kernel=True),
+             "mamba_scan": lambda: mamba_mixer({k: v[0] for k, v in
+                                                hp["layers"]["mamba"].items()},
+                                               x, hymba.cfg, use_kernel=True)}
+    ops.reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if not str(e).startswith(f"{name}: the CUDA kernel has no backward"):
+                fail(f"guard: use_kernel=True under autograd raised another error: {e}")
+            print(f"train guard: {e}")
+        else:
+            fail(f"guard: {name} ran under autograd instead of raising")
+    _zero_launches("guard")
+
+
+def train_other_phase() -> None:
+    """One train step each of hymba-1.5b and rwkv6-3b at their published
+    widths and TRAIN_OTHER_LAYERS layers: a finite loss and grad norm, and
+    no kernel launched."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+
+    B, S = TRAIN_OTHER_SHAPE
+    for arch in TRAIN_OTHER:
+        model = _full(arch, "bfloat16", n_layers=TRAIN_OTHER_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(model, torch.Generator(device="cuda").manual_seed(0),
+                           AdamWConfig(), device="cuda")
+        batch = _train_data(model.cfg, B, S, seed=0).batch(0)
+        step = make_train_step(model, AdamWConfig())
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        print(f"train {arch} (full width, {TRAIN_OTHER_LAYERS} layers, {model.n_params} "
+              f"parameters, B={B}, S={S}): loss {loss:.5f}, grad norm {gnorm:.5f}, step "
+              f"wall {wall:.3f} s, peak memory {_peak_gb()}; launches "
+              f"{ops.launch_counts()}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{arch}: non-finite training loss or grad norm")
+        _zero_launches(arch)
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_phase(smi: str) -> None:
+    """The training path: card against CPU, the full-width smollm-135m run
+    (with the accumulation check), the launcher's restart, the kernel
+    guard and the other families."""
+    t0 = time.perf_counter()
+    train_parity_phase()
+    train_main_phase(smi)
+    train_launcher_phase()
+    train_guard_phase()
+    train_other_phase()
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1709,6 +2087,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["flash_attention"] = sum(flash_paths.values())
     rows["flash_attention"]["launches_by_path"] = flash_paths
+    train_phase(smi)
 
     for name, row in rows.items():
         print(f"bound share {name:16s} {row['dtype']:8s} kernel {row['ms']:.5f} ms, bound "

@@ -1,0 +1,4 @@
+"""Checkpoint substrate."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -7,6 +7,13 @@ tensors' device:
   * anything else goes to the CUDA kernel's wrapper, which launches on a
     CUDA tensor or raises. There is no fallback from the card.
 
+No kernel has a backward (no Pallas kernel of the reference has a VJP
+either), so a kernel's output is not tracked by autograd: the CUDA
+branches of the LM kernels (flash attention, the selective scan, WKV6)
+raise a ``RuntimeError`` when autograd records and an input requires
+grad, rather than hand back a loss gradient that skips the kernel.
+Training runs the plain path, as the reference does.
+
 Each kernel keeps one integer launch counter (``launch_counts``), raised
 only where its wrapper launches it, so a run can show that its path went
 through the kernels.
@@ -26,6 +33,15 @@ from repro_torch.kernels import wkv6 as wkv_mod
 
 def _on_cpu(*xs: torch.Tensor) -> bool:
     return all(x.device.type == "cpu" for x in xs)
+
+
+def _untracked(name: str, *xs: torch.Tensor) -> None:
+    """Raise before a kernel launch whose output autograd would need."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad; train with use_kernel=False (the plain path, as the "
+            f"reference trains), or call it under torch.no_grad()")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -85,6 +101,7 @@ def flash_attention(q, k, v, *, window: int = 0, scale=None,
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, window=window, scale=scale,
                                      causal=causal)
+    _untracked("flash_attention", q, k, v)
     return fa_mod.flash_attention_cuda(q, k, v, window=window, scale=scale,
                                        causal=causal)
 
@@ -94,6 +111,7 @@ def mamba_scan(xs, dt, Bs, Cs, A):
     A (di,n) -> (y (B,T,di), final state (B,di,n))."""
     if _on_cpu(xs, dt, Bs, Cs, A):
         return ref.mamba_scan(xs, dt, Bs, Cs, A)
+    _untracked("mamba_scan", xs, dt, Bs, Cs, A)
     return ms_mod.mamba_scan_cuda(xs, dt, Bs, Cs, A)
 
 
@@ -119,6 +137,7 @@ def wkv6(r, k, v, w, u):
     scan. The kernel reads the layout in place."""
     if _on_cpu(r, k, v, w, u):
         return wkv6_plain(r, k, v, w, u)
+    _untracked("wkv6", r, k, v, w, u)
     return wkv_mod.wkv6_cuda(r, k, v, w, u)
 
 

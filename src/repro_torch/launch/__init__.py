@@ -1,1 +1,2 @@
-"""Launchers of the port: the LM serving steps and the serving CLI."""
+"""Launchers of the port: the train, prefill and serve steps, the training
+and serving CLIs."""

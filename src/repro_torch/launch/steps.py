@@ -1,17 +1,95 @@
-"""Step functions of the LM serving path (``repro.launch.steps.make_cell``'s
+"""Step functions of the launchers (``repro.launch.steps.make_cell``'s train,
 prefill and decode branches).
 
 The reference builds a lowering cell per (arch x shape): a step callable
 plus abstract arguments and shardings for XLA. On one card the step
-callables are all that is left: sharding, lowering and donation are
-XLA's and wait for the XLA-tools slice; the train step comes with the
-training slice.
+callables are all that is left: sharding plans, abstract arguments and
+lowering wait for the multi-card and XLA-tools slices. The train step
+keeps the reference's gradient accumulation, with the accumulation
+factor from ``choose_microbatches``.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.training import optimizer as opt_mod
+from repro_torch.training.loop import TrainState, value_and_grad
+
+
+def choose_microbatches(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,
+                        model_size: int = 1, override: int = 0) -> int:
+    """Smallest accumulation factor whose live activation estimate fits.
+
+    Estimate per device: saved residuals (seq-sharded when SP is on) +
+    the cross-entropy logits block (vocab-sharded). ``dp`` and
+    ``model_size`` are the mesh's data-parallel and model axes (1 and 1
+    on one card); ``override`` stands in for the reference's
+    ``knobs.active().microbatch``.
+    """
+    if override:
+        return override
+    b_dev = max(shape.global_batch // max(dp, 1), 1)
+    sp = 16 if shape.seq_len % 16 == 0 else 1
+    budget = 4.5e9
+    for n in (1, 2, 4, 8, 16):
+        if shape.global_batch % (dp * n):
+            continue
+        bd = b_dev / n
+        resid = cfg.n_layers * bd * shape.seq_len * cfg.d_model * 2 / sp
+        logits = bd * shape.seq_len * cfg.padded_vocab * 6 / max(model_size, 1)
+        moe = 0.0
+        if cfg.n_experts:
+            # dispatch/recv/expert-act stashes per MoE layer (backward)
+            n_moe = cfg.n_layers - cfg.first_dense_layers
+            moe = 3.0 * n_moe * bd * shape.seq_len * cfg.topk \
+                * cfg.d_model * 2 / max(model_size, 1)
+        if resid + logits + moe < budget:
+            return n
+    return 16 if shape.global_batch % (dp * 16) == 0 else 1
+
+
+def make_train_step(model, shape: ShapeConfig,
+                    opt_cfg: opt_mod.AdamWConfig = opt_mod.AdamWConfig(total_steps=10000),
+                    n_micro: int | None = None) -> Callable:
+    """``train_step(state, batch)`` -> (state, metrics): the train branch
+    of the reference's ``make_cell``. With ``n_micro`` > 1 (default:
+    ``choose_microbatches`` on one card) the batch is split into that many
+    microbatches along its leading axis, and the loss (divided by
+    ``n_micro``) and the fp32 gradient sums (each gradient divided by
+    ``n_micro``) accumulate over them before one AdamW update; only one
+    microbatch's activations are live at a time. The plain path, with
+    ``remat``, as the reference's."""
+    if n_micro is None:
+        n_micro = choose_microbatches(model.cfg, shape)
+
+    def loss_of(batch):
+        return lambda p: model.loss(p, batch)
+
+    def train_step(state: TrainState, batch):
+        if n_micro == 1:
+            loss, grads = value_and_grad(loss_of(batch), state.params)
+        else:
+            micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])
+                     for k, v in batch.items()}
+            loss = 0.0
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), state.params)
+            acc = tree_leaves(grads)
+            for i in range(n_micro):
+                mb = {k: v[i] for k, v in micro.items()}
+                mloss, g = value_and_grad(loss_of(mb), state.params)
+                for a, b in zip(acc, tree_leaves(g)):
+                    a.add_(b.to(torch.float32) / n_micro)
+                loss = loss + mloss / n_micro
+        params, opt_state, metrics = opt_mod.update(
+            opt_cfg, grads, state.opt, state.params)
+        return TrainState(params, opt_state, None), {"loss": loss, **metrics}
+
+    return train_step
 
 
 def make_prefill_step(model, use_kernel: bool = True) -> Callable:

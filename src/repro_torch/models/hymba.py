@@ -9,6 +9,7 @@ The Mamba side keeps O(1) decode state (conv tail + SSM state), and the
 attention side uses a ring-buffer SWA cache. With ``use_kernel`` the
 prefill runs the hand-written flash-attention and selective-scan kernels
 (``repro_torch.kernels.ops``); decode stays on the plain recurrence.
+``loss`` and ``remat`` are the decoder's (``transformer.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.models.params import (
     normal_init,
     ones_init,
     param_count,
+    unstack,
     zeros_init,
 )
 from repro_torch.models.transformer import (
@@ -37,6 +39,7 @@ from repro_torch.models.transformer import (
     _stack,
     attention_block,
     attention_schema,
+    remat_apply,
 )
 
 SWA_WINDOW = 1024
@@ -162,6 +165,19 @@ def model_schema(cfg: ModelConfig) -> Schema:
     }
 
 
+def block_apply(p, x, cfg: ModelConfig, positions, use_kernel: bool = False):
+    """One layer: attention and the Mamba mixer in parallel on the normed
+    input, each output normed, their mean added; then the SwiGLU FFN."""
+    h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
+    a = attention_block(p["attn"], h, cfg, positions, use_kernel)
+    m, _, _ = mamba_mixer(p["mamba"], h, cfg, use_kernel=use_kernel)
+    a = layers.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
+    m = layers.rmsnorm(p["mamba_out_norm"], m, cfg.norm_eps)
+    x = x + 0.5 * (a + m)
+    h = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+    return x + layers.swiglu(p["mlp"], h)
+
+
 class HymbaLM(nn.Module):
     """The hybrid-head LM; parameters are passed to every call, as in the
     reference."""
@@ -178,31 +194,29 @@ class HymbaLM(nn.Module):
         return init_params(self.schema, generator, device)
 
     # ------------------------------------------------------------- forward
-    @torch.no_grad()
-    def hidden_states(self, params, tokens, *, use_kernel=False):
+    def hidden_states(self, params, tokens, *, use_kernel=False, remat=True):
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens, _dtype(cfg))
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        for i in range(cfg.n_layers):
-            p = layer(params["layers"], i)
-            h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
-            a = attention_block(p["attn"], h, cfg, positions, use_kernel)
-            m, _, _ = mamba_mixer(p["mamba"], h, cfg, use_kernel=use_kernel)
-            a = layers.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
-            m = layers.rmsnorm(p["mamba_out_norm"], m, cfg.norm_eps)
-            x = x + 0.5 * (a + m)
-            h = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-            x = x + layers.swiglu(p["mlp"], h)
+        for p in unstack(params["layers"]):
+            x = remat_apply(block_apply, remat, p, x, cfg, positions, use_kernel)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
-    def logits(self, params, tokens, *, use_kernel=False):
-        x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel)
+    def logits(self, params, tokens, *, use_kernel=False, remat=True):
+        x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel,
+                                    remat=remat)
         return layers.unembed({"table": params["lm_head"]}, x), aux
 
-    def last_logits(self, params, tokens, *, use_kernel=False):
-        x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel)
+    def last_logits(self, params, tokens, *, use_kernel=False, remat=True):
+        x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel,
+                                  remat=remat)
         return layers.unembed({"table": params["lm_head"]}, x[:, -1:])
+
+    def loss(self, params, batch, *, use_kernel=False, remat=True):
+        logits, _ = self.logits(params, batch["inputs"], use_kernel=use_kernel,
+                                remat=remat)
+        return layers.cross_entropy(logits, batch["labels"])
 
     # -------------------------------------------------------------- decode
     def cache_spec(self, batch: int, max_len: int) -> dict:

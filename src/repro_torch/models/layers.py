@@ -96,7 +96,11 @@ def chunked_attention(q, k, v, *, window: int = 0, scale: float | None = None,
 
     Never materializes more than (B, H, q_chunk, kv_chunk) of scores. The
     reference's ``lax.map``/``lax.scan`` over chunks are Python loops
-    here; its ``q_offset`` serves only the sequence-parallel path.
+    here; its ``q_offset`` serves only the sequence-parallel path. A key
+    chunk wholly after a query chunk's last position is skipped: its
+    scores are masked to -1e30 after a chunk with unmasked keys (key 0 is
+    in every query's causal window when it comes first), so it would add
+    exactly 0 to the sums and leave the running max as it is.
     """
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
@@ -119,7 +123,7 @@ def chunked_attention(q, k, v, *, window: int = 0, scale: float | None = None,
         acc = torch.zeros((B, H, q_chunk, hd_v), dtype=torch.float32, device=q.device)
         m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
         denom = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=q.device)
-        for ki in range(nk):
+        for ki in range(min(nk, -(-(qi + 1) * q_chunk // kv_chunk))):
             k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=q.device)
             k_rep = torch.repeat_interleave(kr[ki], groups, dim=1)     # (B,H,kc,hd)
             v_rep = torch.repeat_interleave(vr[ki], groups, dim=1)
@@ -211,3 +215,15 @@ def embed(params, ids, dtype):
 def unembed(params, x, table=None):
     t = (table if table is not None else params["table"]).to(x.dtype)
     return x @ t.T
+
+
+# -------------------------------------------------------------------- loss
+def cross_entropy(logits, labels):
+    """The reference models' token loss: fp32 log-softmax, positions whose
+    label is negative masked, the mean over the rest. logits (..., V),
+    labels (...) of any integer dtype."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

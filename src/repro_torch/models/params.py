@@ -7,7 +7,9 @@ drawn from an explicit ``torch.Generator``) and ``param_count``.
 
 ``params_from_numpy`` carries the JAX package's parameter tree across,
 key for key (as numpy arrays), so the port and the reference can be run
-on the same weights. ``param_specs`` and ``ShardingRules`` come with the
+on the same weights. ``tree_leaves`` and ``tree_map`` walk a nested dict of
+tensors in ``jax.tree_util``'s leaf order (keys sorted), for the optimizer
+and the checkpoints. ``param_specs`` and ``ShardingRules`` come with the
 multi-card substrate.
 """
 from __future__ import annotations
@@ -125,3 +127,31 @@ def layer(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def unstack(stacked: dict) -> list[dict]:
+    """Every layer of a stacked tree, each leaf taken apart once with
+    ``torch.unbind``: under autograd the backward stacks each leaf's
+    gradient once, where L ``select`` views (``layer``) would each
+    zero-fill a stacked-size gradient."""
+    if not isinstance(stacked, dict):
+        return list(stacked.unbind(0))
+    parts = {k: unstack(v) for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, keys sorted at each level (the order of
+    ``jax.tree_util.tree_leaves``); a leaf that is not a dict is itself."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure), as a tree of that structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)

@@ -11,9 +11,8 @@ length.
 With ``use_kernel`` the prefill (zero initial state) runs the
 hand-written WKV6 kernel (``repro_torch.kernels.ops.wkv6``); decode, which
 carries the state, stays on the scan. ``WKV_IMPL`` picks the plain path:
-the per-step scan or the chunk-parallel form. The reference's ``loss``
-comes with the training slice, and its ``remat`` (a training memory
-trade) is dropped, as in ``transformer.py``.
+the per-step scan or the chunk-parallel form. ``loss`` and ``remat`` are
+the decoder's (``transformer.py``).
 """
 from __future__ import annotations
 
@@ -30,8 +29,9 @@ from repro_torch.models.params import (
     layer,
     normal_init,
     param_count,
+    unstack,
 )
-from repro_torch.models.transformer import _dtype, _stack
+from repro_torch.models.transformer import _dtype, _stack, remat_apply
 
 HEAD_DIM = 64
 DECAY_LORA = 64
@@ -237,6 +237,17 @@ def channelmix(params, x, cfg: ModelConfig, x_prev=None):
     return r * (k @ params["w_v"].to(dt)), x[:, -1]
 
 
+def block_apply(p, x, cfg: ModelConfig, use_kernel: bool = False):
+    """One layer: the time-mix block, then the channel-mix block, each on
+    its normed input and added to the residual."""
+    h = layers.rmsnorm(p["tm_norm"], x, cfg.norm_eps)
+    out, _, _ = timemix(p["tm"], h, cfg, use_kernel=use_kernel)
+    x = x + out
+    h = layers.rmsnorm(p["cm_norm"], x, cfg.norm_eps)
+    out, _ = channelmix(p["cm"], h, cfg)
+    return x + out
+
+
 # -------------------------------------------------------------------- model
 class RWKV6LM(nn.Module):
     """The RWKV-6 LM; parameters are passed to every call, as in the
@@ -252,27 +263,27 @@ class RWKV6LM(nn.Module):
         return init_params(self.schema, generator, device)
 
     # ------------------------------------------------------------- forward
-    @torch.no_grad()
-    def hidden_states(self, params, tokens, *, use_kernel=False):
+    def hidden_states(self, params, tokens, *, use_kernel=False, remat=True):
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens, _dtype(cfg))
-        for i in range(cfg.n_layers):
-            p = layer(params["layers"], i)
-            h = layers.rmsnorm(p["tm_norm"], x, cfg.norm_eps)
-            out, _, _ = timemix(p["tm"], h, cfg, use_kernel=use_kernel)
-            x = x + out
-            h = layers.rmsnorm(p["cm_norm"], x, cfg.norm_eps)
-            out, _ = channelmix(p["cm"], h, cfg)
-            x = x + out
+        for p in unstack(params["layers"]):
+            x = remat_apply(block_apply, remat, p, x, cfg, use_kernel)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
-    def logits(self, params, tokens, *, use_kernel=False):
-        x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel)
+    def logits(self, params, tokens, *, use_kernel=False, remat=True):
+        x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel,
+                                    remat=remat)
         return layers.unembed({"table": params["lm_head"]}, x), aux
 
-    def last_logits(self, params, tokens, *, use_kernel=False):
-        x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel)
+    def last_logits(self, params, tokens, *, use_kernel=False, remat=True):
+        x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel,
+                                  remat=remat)
         return layers.unembed({"table": params["lm_head"]}, x[:, -1:])
+
+    def loss(self, params, batch, *, use_kernel=False, remat=True):
+        logits, _ = self.logits(params, batch["inputs"], use_kernel=use_kernel,
+                                remat=remat)
+        return layers.cross_entropy(logits, batch["labels"])
 
     # -------------------------------------------------------------- decode
     def cache_spec(self, batch: int, max_len: int) -> dict:

@@ -13,8 +13,11 @@
   * decode path with a KV (or MLA latent / SWA ring-buffer) cache,
     updated in place.
 
-Serving only: the reference's ``remat`` (a training memory trade) has no
-role here and is dropped. MLA has no kernel route: its k (qk dim 192 at
+``loss`` is the reference's token loss plus 0.01 times the MoE layers'
+aux loss. ``remat`` (default on, as in the reference) checkpoints each
+block when autograd records (``torch.utils.checkpoint``, the counterpart
+of ``jax.checkpoint``): the backward recomputes a block's activations
+instead of keeping them. MLA has no kernel route: its k (qk dim 192 at
 full width) and v (128) differ in width, which the reference's flash
 wrapper cannot take either, so MLA with ``use_kernel=True`` raises.
 """
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
@@ -32,6 +36,7 @@ from repro_torch.models.params import (
     layer,
     normal_init,
     param_count,
+    unstack,
 )
 
 
@@ -210,6 +215,14 @@ def block_apply(params, x, cfg: ModelConfig, positions, use_kernel: bool = False
     return x + y, aux
 
 
+def remat_apply(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed when ``remat`` and autograd records (a
+    serving call, under ``no_grad``, runs it as it is)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _head_table(params):
     table = params.get("lm_head")
     return params["embed"]["table"] if table is None else table
@@ -239,14 +252,14 @@ class DecoderLM(nn.Module):
         return init_params(self.schema, generator, device)
 
     def _blocks(self, params):
-        """Each layer's parameters in depth order, across both stacks."""
+        """Each layer's parameters in depth order, across both stacks, as
+        views (decode)."""
         for key, n, _ in _stacks(self.cfg):
             for i in range(n):
                 yield layer(params[key], i)
 
     # ------------------------------------------------------------- forward
-    @torch.no_grad()
-    def hidden_states(self, params, inputs, *, use_kernel=False):
+    def hidden_states(self, params, inputs, *, use_kernel=False, remat=True):
         """inputs: token ids (B,S), or embeddings (B,S,D) for stubs ->
         (final hidden states, the MoE layers' summed aux loss)."""
         cfg = self.cfg
@@ -258,9 +271,11 @@ class DecoderLM(nn.Module):
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         aux_total = 0.0
-        for p in self._blocks(params):
-            x, aux = block_apply(p, x, cfg, positions, use_kernel)
-            aux_total = aux_total + aux
+        for key, _, _ in _stacks(cfg):
+            for p in unstack(params[key]):
+                x, aux = remat_apply(block_apply, remat, p, x, cfg, positions,
+                                     use_kernel)
+                aux_total = aux_total + aux
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux_total
 
@@ -272,15 +287,23 @@ class DecoderLM(nn.Module):
             logits = logits.reshape(B, S, cfg.num_codebooks, cfg.padded_vocab)
         return logits
 
-    def logits(self, params, inputs, *, use_kernel=False):
-        x, aux = self.hidden_states(params, inputs, use_kernel=use_kernel)
+    def logits(self, params, inputs, *, use_kernel=False, remat=True):
+        x, aux = self.hidden_states(params, inputs, use_kernel=use_kernel,
+                                    remat=remat)
         return self._unembed(params, x), aux
 
-    def last_logits(self, params, inputs, *, use_kernel=False):
+    def last_logits(self, params, inputs, *, use_kernel=False, remat=True):
         """Prefill entry point: logits at the LAST position only — the full
         (B, S, V) prefill logit tensor is never materialized."""
-        x, _ = self.hidden_states(params, inputs, use_kernel=use_kernel)
+        x, _ = self.hidden_states(params, inputs, use_kernel=use_kernel,
+                                  remat=remat)
         return self._unembed(params, x[:, -1:])
+
+    def loss(self, params, batch, *, use_kernel=False, remat=True):
+        """batch: {"inputs": ids|embeds, "labels": (B,S[,n_codebooks])}."""
+        logits, aux = self.logits(params, batch["inputs"], use_kernel=use_kernel,
+                                  remat=remat)
+        return layers.cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
     # -------------------------------------------------------------- decode
     def cache_spec(self, batch: int, max_len: int) -> dict:

@@ -1,11 +1,8 @@
-"""Runtime resilience: failures, stragglers, elastic re-planning.
-
-The counterpart of ``repro.runtime``, resilience only: gradient
-compression comes with the training slice of the port.
-"""
+"""Runtime resilience: failures, stragglers, elastic, compression."""
 from repro_torch.runtime.resilience import (
     FailureInjector, SimulatedFailure, StragglerMonitor, Supervisor, elastic_plan,
 )
+from repro_torch.runtime import compression
 
 __all__ = ["FailureInjector", "SimulatedFailure", "StragglerMonitor",
-           "Supervisor", "elastic_plan"]
+           "Supervisor", "compression", "elastic_plan"]

@@ -30,8 +30,9 @@ for needed in sys.argv[2:]:
 print("imported", len(names))
 """
 
-# The LM serving stack (MoE and MLA included) and the tuner's service
-# and fault layers: every module must be among those imported.
+# The LM serving stack (MoE and MLA included), the tuner's service and
+# fault layers, and the training path: every module must be among those
+# imported.
 LM_MODULES = [
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
     "repro_torch.models", "repro_torch.models.config",
@@ -49,6 +50,10 @@ LM_MODULES = [
     "repro_torch.runtime", "repro_torch.runtime.resilience",
     "repro_torch.models.moe", "repro_torch.models.sharding",
     "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.deepseek_v2_lite_16b",
+    "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.loop",
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.manager", "repro_torch.runtime.compression",
+    "repro_torch.launch.train",
 ]
 
 
@@ -61,4 +66,4 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 60, proc.stdout
+    assert count >= 69, proc.stdout
