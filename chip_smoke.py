@@ -8,23 +8,31 @@ NVIDIA H100:
 
 1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
    and prints each kernel function's registers, shared memory and spill
-   bytes from ptxas; a spill in the bf16 flash, fp32 matmul, mamba_scan or
-   wkv6 kernels fails the run; then the recurrence kernels' registers per
+   bytes from ptxas; a spill in the flash (bf16 and fp32), matmul (fp32
+   and bf16), mamba_scan or wkv6 kernels fails the run; counts ``HGMMA``
+   and ``UTMALDG`` in the bf16 matmul kernel's SASS (``cuobjdump -sass``)
+   and fails if either is 0; then the recurrence kernels' registers per
    thread and resident warps per SM as the CUDA runtime reports them;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it and at the fp32 matmul kernel's slice and
-   tile edges (matmul fp32 rtol=atol=1e-4 and bf16 2e-2, the JAX
-   package's kernel tolerances; stencil fp32 1e-4; segment_rowmax float64
-   1e-12 and float32 1e-4), and times both, with one library call beside
-   each as a yardstick where one PyTorch call computes the same function,
-   and the achieved TFLOP/s and share of the bound (the bf16 matmul, which
-   no main path runs, at the apps' block shape beside ``torch.matmul``);
+   shapes its path gives it and at the matmul kernels' slice and tile
+   edges (fp32 ``MM_EDGES``, bf16 ``MM_BF16_EDGES``: padded and unpadded
+   routes and a misaligned operand; the bf16 app blocks must reach the
+   kernel unpadded and uncopied) (matmul fp32 rtol=atol=1e-4 and bf16
+   2e-2, the JAX package's kernel tolerances; stencil fp32 1e-4;
+   segment_rowmax float64 1e-12 and float32 1e-4), and times both, with
+   one library call beside each as a yardstick where one PyTorch call
+   computes the same function, and the achieved TFLOP/s and share of the
+   bound (both matmuls at the apps' block shape beside ``torch.matmul``);
 3. drives the execute path: all nine paper apps through ``repro_torch.apps``
    at the registry's own problem sizes and default processor counts, each
    checked against its single-device oracle on the card, with the kernels'
    launch counters set to 0 just before and read just after (after one
    uncounted pass at the small validation sizes, so that the per-app times
-   are not first-call times);
+   are not first-call times); then the six matmul apps once more on bf16
+   inputs (``make_inputs(dtype=bfloat16)`` at 4096^3), counters set to 0
+   just before each and read just after, each held to an fp32
+   ``torch.matmul`` of the same inputs within 2e-2 of its largest |entry|
+   (``MM_BF16_APP_REL``), with each run's wall time;
 4. sweeps the pricer: for each app, its most balanced grid at 4096
    processors and 256 seeded random placements, priced by the torch engine
    on the card with the segment_rowmax kernel, against the NumPy engine (8
@@ -58,10 +66,13 @@ NVIDIA H100:
    the smollm-135m prefill (9 over 3 heads, no window), the
    qwen2-moe-a2.7b prefill (16 heads of 128, no window) and a ragged
    length, in bf16 (rtol=atol=2e-2) and fp32 (1e-4), with
-   ``F.scaled_dot_product_attention`` as the yardstick, then the bf16
-   kernel's tile edges (S one short of, at and one past a 64-row tile,
-   windows inside and on a key tile, not causal, d 16 and 128, a
-   misaligned operand the wrapper copies); mamba_scan at the
+   ``F.scaled_dot_product_attention`` as the yardstick, then each flash
+   kernel's tile edges (bf16 ``FLASH_EDGES``: S one short of, at and one
+   past a 64-row tile, windows inside and on a key tile, not causal, d 16
+   and 128, a misaligned operand the wrapper copies; fp32
+   ``FLASH_F32_EDGES``: S at each query tile (128 rows at d <= 64, 64
+   above) +- 1, d 16, 80 and 128, a window ending inside a tile, not
+   causal, a misaligned operand); mamba_scan at the
    hymba prefill (B=4, T=2048, d_inner 3200, state 16), a ragged one and
    its tile edges (``MAMBA_EDGES``), fp32 (1e-4), timed beside the
    exponentials' MUFU floor;
@@ -131,7 +142,8 @@ NVIDIA H100:
    autograd raising for flash, mamba_scan and wkv6 with no launch; one
    step each of hymba-1.5b and rwkv6-3b at full width and 2 layers;
 16. prints one JSON ``kernels`` line (matmul and stencil launches from the
-   execute path, segment_rowmax launches from the tune path and, by path,
+   execute path, the bf16 matmul row's by app from the bf16 pass,
+   segment_rowmax launches from the tune path and, by path,
    from phases 5-8, flash_attention launches summed over the hymba,
    smollm and qwen2-moe prefills and by path, mamba_scan launches from
    the hymba prefill, wkv6 launches from the rwkv6-3b prefill), the
@@ -206,11 +218,27 @@ KERNELS = {
              "replaces": "src/repro/kernels/wkv6.py:59"},
 }
 # The fp32 matmul kernel's slice and tile edges (8-deep slices, 128 x 128
-# tiles; K and N multiples of 4 take its float4 path), and its target
-# against torch.matmul at the apps' block shape (reported, not gated).
+# tiles; K and N multiples of 4 take its float4 path), and the target of
+# both matmul kernels against torch.matmul at the apps' block shape
+# (reported, not gated).
 MM_EDGES = [(2, 70, 4, 36), (2, 70, 5, 36), (1, 200, 20, 136), (1, 200, 13, 136),
             (1, 129, 64, 129), (2, 129, 64, 132)]
 MM_TARGET = 1.5
+# The bf16 matmul kernel's tile edges (128 x 256 tiles, 64-deep stages):
+# (batch, M, K, N, misaligned a). M 127-129 and 200, N 255-257, K 63-65
+# and 777, batch 1 and 3: K or N off a multiple of 8 takes the padded
+# route, the others the unpadded one; the last case hands the wrapper an a
+# whose data pointer is 8 bytes off 16, which it copies.
+MM_BF16_EDGES = [(1, 127, 63, 255, False), (3, 128, 64, 256, False),
+                 (1, 129, 65, 257, False), (3, 200, 777, 256, False),
+                 (1, 128, 64, 257, False), (3, 129, 64, 255, False),
+                 (1, 200, 63, 256, False), (3, 127, 65, 256, False),
+                 (2, 200, 64, 256, True)]
+# The six matmul apps once on bf16 inputs: max |diff| against an fp32
+# torch.matmul of the same inputs at most this share of the largest
+# |entry| (the JAX package's bf16 kernel tolerance, taken relative: the
+# entries reach about 4 sqrt(K)).
+MM_BF16_APP_REL = 2e-2
 # The bf16 flash kernel's tile edges (64 queries, 64 keys a tile):
 # (B, S, H, Kv, d, window, causal, misaligned k).
 FLASH_EDGES = [(2, 63, 4, 2, 64, 0, True, False), (2, 64, 4, 2, 64, 0, True, False),
@@ -218,10 +246,28 @@ FLASH_EDGES = [(2, 63, 4, 2, 64, 0, True, False), (2, 64, 4, 2, 64, 0, True, Fal
                (2, 300, 4, 2, 64, 37, True, False), (1, 512, 4, 1, 64, 128, True, False),
                (2, 257, 4, 2, 64, 64, False, False), (2, 256, 4, 2, 16, 0, True, False),
                (1, 320, 4, 2, 128, 100, True, False), (2, 200, 4, 2, 64, 50, True, True)]
+# The fp32 flash kernel's tile edges (128 queries at d <= 64, 64 above;
+# 64 keys a tile), as FLASH_EDGES: S one short of, at and one past each
+# query tile, d 16, 80 and 128, a window ending inside a key tile, not
+# causal, and a misaligned k (heads 2 floats into a padded row) that the
+# wrapper copies.
+FLASH_F32_EDGES = [(2, 127, 4, 2, 64, 0, True, False), (2, 128, 4, 2, 64, 0, True, False),
+                   (2, 129, 4, 2, 64, 0, True, False), (2, 63, 4, 2, 128, 0, True, False),
+                   (2, 64, 4, 2, 128, 0, True, False), (2, 65, 4, 2, 128, 0, True, False),
+                   (1, 257, 4, 2, 16, 0, True, False), (1, 300, 6, 3, 80, 100, True, False),
+                   (2, 300, 4, 2, 64, 37, True, False), (1, 320, 4, 2, 128, 100, True, False),
+                   (2, 257, 4, 2, 64, 64, False, False), (1, 77, 2, 2, 16, 0, False, False),
+                   (2, 200, 4, 2, 64, 50, True, True)]
 # Sources whose kernel functions must not spill (ptxas -v), and the
 # functions of each that the rule covers.
-NO_SPILL = {"flash_attention_bf16.cu": "flash_bf16_kernel", "matmul.cu": "sgemm_kernel",
-            "mamba_scan.cu": "mamba_scan_kernel", "wkv6.cu": "wkv6_kernel"}
+NO_SPILL = {"flash_attention_bf16.cu": ("flash_bf16_kernel",),
+            "flash_attention.cu": ("flash_f32_kernel",),
+            "matmul.cu": ("sgemm_kernel", "hgemm_kernel"),
+            "mamba_scan.cu": ("mamba_scan_kernel",), "wkv6.cu": ("wkv6_kernel",)}
+# The bf16 matmul kernel runs on the tensor cores and through TMA: its
+# SASS must hold these instructions (cuobjdump -sass of the built library).
+HGEMM_FUNCTION = "hgemm_kernel"
+HGEMM_SASS = ("HGMMA", "UTMALDG")
 # The recurrence kernels' tile edges: mamba_scan (B, T, di, n) with a ragged
 # last 32-channel block, T off the 32-step chunk, n = 4 and 32, and
 # di % 4 != 0 (4-byte copies); wkv6 (B, T, H, N) with T short of, one past
@@ -375,11 +421,34 @@ def ptxas_report(log: str) -> None:
             smem = re.search(r"(\d+) bytes smem", line)
             print(f"  ptxas: {source:24s} {func:28s} {regs:>3s} registers, "
                   f"{smem.group(1) if smem else 0} bytes static smem, {spills} bytes spilled")
-            if spills and NO_SPILL.get(source, "\0") in func:
+            if spills and any(f in func for f in NO_SPILL.get(source, ())):
                 failures.append(f"{source} {func} spills {spills} bytes")
             spills = 0
     if failures:
         fail("; ".join(failures))
+
+
+def sass_report(lib) -> None:
+    """Counts of ``HGEMM_SASS`` in the bf16 matmul kernel's SASS, from the
+    toolkit's ``cuobjdump``; fails if either is 0 (the kernel would not be
+    on the tensor cores, or not fed by TMA)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    bodies = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+              if HGEMM_FUNCTION in f.split("\n", 1)[0]]
+    if len(bodies) != 1:
+        fail(f"cuobjdump shows {len(bodies)} functions named {HGEMM_FUNCTION}, not 1")
+    counts = {op: len(re.findall(rf"\b{op}\b", bodies[0])) for op in HGEMM_SASS}
+    print(f"  sass: matmul.cu {HGEMM_FUNCTION}: "
+          + ", ".join(f"{n} {op}" for op, n in counts.items()))
+    missing = [op for op, n in counts.items() if n == 0]
+    if missing:
+        fail(f"{HGEMM_FUNCTION} has no {' or '.join(missing)} in its SASS")
 
 
 def occupancy_report() -> None:
@@ -440,20 +509,36 @@ def parity_and_timing(mm_shapes, stencil_block, stencil_field) -> dict:
     gen.manual_seed(0)
     rows = {}
 
-    # ---- matmul: every app block shape in fp32 and bf16, plus a ragged one.
-    cases = [(s, dt) for s in mm_shapes for dt in ("float32", "bfloat16")]
-    cases += [((3, 1000, 777, 513), "float32"), ((3, 1000, 777, 513), "bfloat16")]
-    cases += [(s, "float32") for s in MM_EDGES]
-    for (b, m, k, n), dt in cases:
+    # ---- matmul: every app block shape in fp32 and bf16, a ragged one, and
+    # each kernel's tile edges. The bf16 app blocks must reach the kernel
+    # as they are (no padding, no copy).
+    cases = [(s, dt, False) for s in mm_shapes for dt in ("float32", "bfloat16")]
+    cases += [((3, 1000, 777, 513), "float32", False), ((3, 1000, 777, 513), "bfloat16", False)]
+    cases += [(s, "float32", False) for s in MM_EDGES]
+    cases += [(s[:4], "bfloat16", s[4]) for s in MM_BF16_EDGES]
+    for (b, m, k, n), dt, misaligned in cases:
         dtype = getattr(torch, dt)
-        a = torch.randn((b, m, k), generator=gen, device="cuda").to(dtype)
+        if misaligned:
+            a = torch.randn((b * m * k + 4,), generator=gen, device="cuda").to(dtype)[4:]
+            a = a.view(b, m, k)
+        else:
+            a = torch.randn((b, m, k), generator=gen, device="cuda").to(dtype)
         w = torch.randn((b, k, n), generator=gen, device="cuda").to(dtype)
+        route = ""
+        if dt == "bfloat16":
+            a_in, w_in = mm_mod.tma_operands(a, w)
+            copied = [x for x, y in (("a", a_in is a), ("b", w_in is w)) if not y]
+            route = (f" ({'padded/copied ' + ' and '.join(copied) if copied else 'as it is'})")
+            if (b, m, k, n) in mm_shapes and copied:
+                fail(f"the bf16 app block {(b, m, k, n)} is padded or copied before the kernel")
+            if misaligned and "a" not in copied:
+                fail("the misaligned bf16 matmul operand reached the kernel uncopied")
         err = check_close(f"matmul {dt} {(b, m, k, n)}",
                           mm_mod.matmul_cuda(a, w), ref.matmul(a, w), dt)
-        print(f"parity matmul {dt:8s} batch={b} {m}x{k}x{n}: "
+        print(f"parity matmul {dt:8s} batch={b} {m}x{k}x{n}{route}: "
               f"max_abs_err={err:.3e}")
-        # Timed: fp32 at every app block shape; bf16 (which no main path
-        # runs) at the first, the apps' 4 x 2048^3.
+        # Timed: fp32 at every app block shape; bf16 (which the bf16 app
+        # pass runs at the same shapes) at the first, the apps' 4 x 2048^3.
         if (b, m, k, n) not in mm_shapes[:1 if dt == "bfloat16" else None]:
             continue
         ref.no_tf32()
@@ -465,7 +550,7 @@ def parity_and_timing(mm_shapes, stencil_block, stencil_field) -> dict:
         print(f"time   matmul {dt:8s} batch={b} {m}x{k}x{n}: kernel {ms:.4f} ms "
               f"({tflops(flops, ms)}, {bnd / ms:.1%} of bound), plain {plain:.4f} ms, "
               f"torch.matmul {lib:.4f} ms ({tflops(flops, lib)}); kernel / torch.matmul "
-              f"{ms / lib:.3f}" + (f" (target <= {MM_TARGET})" if dt == "float32" else ""))
+              f"{ms / lib:.3f} (target <= {MM_TARGET})")
         if (b, m, k, n) != mm_shapes[0]:
             continue
         row = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
@@ -540,6 +625,62 @@ def apps_phase() -> dict[str, int]:
     if failures:
         fail("; ".join(failures))
     return counts
+
+
+def matmul_bf16_phase() -> dict[str, int]:
+    """The six matmul apps once on bf16 inputs through
+    ``<algo>.matmul(..., use_kernel=True)``, at the registry's problem and
+    default processor counts, counters set to 0 just before each run and
+    read just after; each held to an fp32 ``torch.matmul`` of the same bf16
+    inputs (TF32 off) within ``MM_BF16_APP_REL`` of its largest |entry|.
+    Prints the counted run's wall time and a second, uncounted one's.
+    Returns each app's bf16 matmul launches."""
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.apps import definitions
+    from repro_torch.kernels import ops, ref
+    from repro_torch.matmul import ALGORITHMS
+    from repro_torch.matmul.common import MatmulGrid, make_inputs
+
+    p = definitions.MATMUL_PROBLEM
+    a, b = make_inputs(p.m, p.k, p.n, seed=0, dtype=torch.bfloat16, device="cuda")
+    ref.no_tf32()
+    expect = torch.matmul(a.float(), b.float())
+    largest = float(expect.abs().max())
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    print(f"bf16 apps at {p.m}x{p.k}x{p.n} (largest |entry| {largest:.3e}; limit "
+          f"{MM_BF16_APP_REL} of it):")
+    print(f"{'app':10s} {'procs':>5s} {'max_err':>10s} {'rel_err':>10s} {'first ms':>10s} "
+          f"{'again ms':>10s} {'matmul':>6s} ok")
+    launches, failures = {}, []
+    for app in apps.iter_apps(kind=apps.MATMUL):
+        plan = app.spmd_plan(app.default_procs, device="cuda")
+        grid = MatmulGrid(mesh=plan.mesh, axis_names=plan.axis_names)
+        fn = lambda: ALGORITHMS[app.name].matmul(a, b, grid, use_kernel=True)  # noqa: E731
+        ops.reset_launch_counts()
+        out, first = run(fn)
+        launches[app.name] = ops.launch_counts()["matmul"]
+        _, again = run(fn)
+        err = float((out.float() - expect).abs().max())
+        ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == tuple(expect.shape)
+              and bool(torch.isfinite(out.float()).all()) and err <= MM_BF16_APP_REL * largest)
+        print(f"{app.name:10s} {app.default_procs:5d} {err:10.3e} {err / largest:10.3e} "
+              f"{first:10.3f} {again:10.3f} {launches[app.name]:6d} {ok}")
+        if not ok:
+            failures.append(f"{app.name} bf16: max |diff| {err:.3e} of largest {largest:.3e}")
+        if launches[app.name] == 0:
+            failures.append(f"{app.name} bf16 never launched the matmul kernel")
+    if failures:
+        fail("; ".join(failures))
+    return launches
 
 
 def steady_times(repeats: int = 6) -> None:
@@ -1137,36 +1278,41 @@ def _sdpa(q, k, v, window: int):
                                                   enable_gqa=True)
 
 
-def flash_edges_phase(gen) -> float:
-    """The bf16 flash kernel against its plain version at its tile edges
-    (``FLASH_EDGES``); the last case hands it a k whose heads start 4
-    elements into a padded row, which the wrapper copies."""
+def flash_edges_phase(gen) -> dict[str, float]:
+    """Each flash kernel against its plain version at its tile edges
+    (bf16 ``FLASH_EDGES``, fp32 ``FLASH_F32_EDGES``); each list's last case
+    hands the kernel a k whose heads start 16 - 8 bytes into a padded row,
+    which the wrapper copies. Returns the largest error of each dtype."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
 
-    err_all = 0.0
-    for B, S, H, Kv, d, window, causal, misaligned in FLASH_EDGES:
-        q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
-        if misaligned:
-            k = torch.randn((B, S, Kv * d + 4), generator=gen, device="cuda").to(
-                torch.bfloat16)[..., 4:].unflatten(-1, (Kv, d))
-            if fa_mod.bf16_ready(k):
-                fail("the misaligned flash operand counts as aligned")
-        else:
-            k = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(torch.bfloat16)
-        out = fa_mod.flash_attention_cuda(q, k, v, window=window, causal=causal)
-        expect = ops.flash_attention_plain(q, k, v, window=window, causal=causal)
-        torch.cuda.synchronize()
-        tag = (f"flash_attention bfloat16 B={B} S={S} H={H}/{Kv} d={d} window={window}"
-               f"{'' if causal else ' not causal'}{' misaligned k' if misaligned else ''}")
-        if not torch.isfinite(out.float()).all():
-            fail(f"{tag}: non-finite output")
-        err = check_close(tag, out, expect, "bfloat16")
-        err_all = max(err_all, err)
-        print(f"parity {tag}: max_abs_err={err:.3e}")
+    err_all = {}
+    for dt, edges in (("bfloat16", FLASH_EDGES), ("float32", FLASH_F32_EDGES)):
+        dtype = getattr(torch, dt)
+        skew = 8 // torch.empty((), dtype=dtype).element_size()   # 8 bytes off 16
+        err_all[dt] = 0.0
+        for B, S, H, Kv, d, window, causal, misaligned in edges:
+            q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
+            if misaligned:
+                k = torch.randn((B, S, Kv * d + skew), generator=gen, device="cuda").to(
+                    dtype)[..., skew:].unflatten(-1, (Kv, d))
+                if fa_mod.kernel_ready(k):
+                    fail(f"the misaligned {dt} flash operand counts as aligned")
+            else:
+                k = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((B, S, Kv, d), generator=gen, device="cuda").to(dtype)
+            out = fa_mod.flash_attention_cuda(q, k, v, window=window, causal=causal)
+            expect = ops.flash_attention_plain(q, k, v, window=window, causal=causal)
+            torch.cuda.synchronize()
+            tag = (f"flash_attention {dt} B={B} S={S} H={H}/{Kv} d={d} window={window}"
+                   f"{'' if causal else ' not causal'}{' misaligned k' if misaligned else ''}")
+            if not torch.isfinite(out.float()).all():
+                fail(f"{tag}: non-finite output")
+            err = check_close(tag, out, expect, dt)
+            err_all[dt] = max(err_all[dt], err)
+            print(f"parity {tag}: max_abs_err={err:.3e}")
     return err_all
 
 
@@ -1219,7 +1365,8 @@ def lm_kernel_phase() -> dict:
                                 "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
                                 "shape": [B, S, H, Kv, d, window], "dtype": dt}
 
-    fa_err = max(fa_err, flash_edges_phase(gen))
+    edge_err = flash_edges_phase(gen)
+    fa_err = max(fa_err, *edge_err.values())
 
     # mamba_scan: hymba's prefill shape (timed), a ragged one, the tile edges.
     ms_err, ms_row = 0.0, None
@@ -2037,6 +2184,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.seconds:.2f} s) -> {lib.path.relative_to(ROOT)}")
     ptxas_report(lib.log)
+    sass_report(lib)
     occupancy_report()
 
     mm_shapes, stencil_block, stencil_field = app_shapes()
@@ -2045,6 +2193,9 @@ def main() -> int:
     rows.update(lm_kernel_phase())
     rows.update(wkv6_kernel_phase())
     counts = apps_phase()
+    bf16_paths = matmul_bf16_phase()
+    rows["matmul"]["bfloat16"].update(launches=sum(bf16_paths.values()),
+                                      launches_by_path=bf16_paths)
     steady_times()
     pricer_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as tmp:

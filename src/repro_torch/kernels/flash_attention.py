@@ -20,27 +20,25 @@ from repro_torch.kernels import build
 ENTRY = {torch.float32: "mapple_flash_attention_f32",
          torch.bfloat16: "mapple_flash_attention_bf16"}
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
-_GRID_Y_MAX = 65535            # one grid row per (batch, head)
+_GRID_Y_MAX = 65535            # one grid row per query tile
+_MIN_BQ = 64                   # the smallest query tile of either kernel
 
 
-def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
-    return x if x.stride(-1) == 1 else x.contiguous()
-
-
-def bf16_ready(x: torch.Tensor) -> bool:
-    """Whether the bf16 kernel can read ``x`` in place: its 16-byte
-    ``cp.async`` copies and ``ldmatrix`` rows need the last dim contiguous,
-    the data pointer 16-byte aligned and the batch, seq and head strides
-    multiples of 8 elements."""
+def kernel_ready(x: torch.Tensor) -> bool:
+    """Whether the kernels can read ``x`` in place: their 16-byte
+    ``cp.async`` copies (and the bf16 kernel's ``ldmatrix`` rows) need the
+    last dim contiguous, the data pointer 16-byte aligned and the batch,
+    seq and head strides multiples of 16 bytes (8 bf16, 4 fp32 elements)."""
+    per_16 = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 8 == 0 for s in x.stride()[:-1]))
+            and all(s % per_16 == 0 for s in x.stride()[:-1]))
 
 
-def bf16_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself if the bf16 kernel can read it in place, else a fresh
+def kernel_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if the kernels can read it in place, else a fresh
     contiguous copy (a copy, not another route: ``.contiguous()`` would
     hand back a contiguous view whose data pointer is misaligned)."""
-    return x if bf16_ready(x) else x.clone(memory_format=torch.contiguous_format)
+    return x if kernel_ready(x) else x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,11 +66,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"multiple of {Kv} KV heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
-    if S < 1 or B * H > _GRID_Y_MAX:
+    if S < 1 or -(-S // _MIN_BQ) > _GRID_Y_MAX:
         raise ValueError(f"flash_attention kernel shape out of range: "
                          f"{tuple(q.shape)}")
-    fit = bf16_operand if q.dtype == torch.bfloat16 else _last_dim_contiguous
-    q, k, v = (fit(x) for x in (q, k, v))
+    q, k, v = (kernel_operand(x) for x in (q, k, v))
     scale = float(scale) if scale is not None else d ** -0.5
     out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out)

@@ -3,12 +3,14 @@
 Replaces ``repro.kernels.matmul.matmul_pallas``: C = A @ B with fp32
 accumulation, output in A's dtype. The kernel is batched: the leading dims
 of the operands (the stacked rank dims of an SPMD body) become its batch,
-so one launch serves every virtual rank. Edges are masked, so no shape has
-to tile evenly.
+so one launch serves every virtual rank. No shape has to tile evenly: the
+fp32 kernel masks its edges, and the bf16 kernel's TMA zero-fills them,
+given K and N multiples of 8 (``tma_operands`` pads any other).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -16,6 +18,27 @@ DTYPES = {torch.float32: "mapple_matmul_f32",
           torch.bfloat16: "mapple_matmul_bf16"}
 _INT_MAX = 2**31 - 1
 _GRID_MAX = 65535
+TMA_ALIGN = 8          # bf16 elements in 16 bytes: TMA's unit of base and stride
+
+
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense bf16 operands ``a`` (..., M, K), ``b`` (..., K, N) as the bf16
+    kernel's TMA reads them: K and N zero-padded to multiples of 8 (16-byte
+    rows; the zeros add nothing to any product, and C's extra columns are
+    sliced off), data pointers 16-byte aligned. Each operand that already
+    is so comes back as it is; the others are copies. Plain tensor code, so
+    it runs on any device."""
+    k, n = b.shape[-2:]
+    kp, np_ = _round_up(k, TMA_ALIGN), _round_up(n, TMA_ALIGN)
+    if kp != k:
+        a = F.pad(a, (0, kp - k))
+    if (kp, np_) != (k, n):
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -51,6 +74,10 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{m} x {k} x {n}")
     a = a.expand(*batch, m, k).contiguous()
     b = b.expand(*batch, k, n).contiguous()
+    n_out = n
+    if a.dtype == torch.bfloat16:
+        a, b = tma_operands(a, b)
+        k, n = b.shape[-2:]
     out = torch.empty((*batch, m, n), dtype=a.dtype, device=a.device)
     lib = build.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -58,7 +85,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a.data_ptr(), b.data_ptr(), out.data_ptr(), nbatch, m, n, k, stream)
     build.check(lib, err, "matmul")
     build.count_launch(matmul_cuda)
-    return out
+    return out if n == n_out else out[..., :n_out]
 
 
 matmul_cuda.launches = 0

@@ -8,6 +8,13 @@ the same inputs on the CPU, carried over by ``state_from_numpy``, with the
 matmul bodies on the kernel path (``use_kernel=True``). Outputs agree
 within the fp32 tolerance of ``tests/test_kernels.py``: the arithmetic is
 the same, only the summation order differs (blocking, scatter-add).
+
+The six matmul algorithms also run once on bf16 inputs with
+``use_kernel=True`` on both sides: the JAX package through its
+interpreted ``matmul_pallas``, the port through ``ref.matmul``. Each block
+product is rounded to bf16 before it is summed, so the two agree within
+the JAX package's bf16 kernel tolerance, 2e-2, taken relative to the
+largest entry (the entries reach about 4 sqrt(K)).
 """
 import os
 import subprocess
@@ -16,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.science import circuit as jcircuit
 from repro_torch import apps
@@ -27,6 +35,7 @@ from repro_torch.science import circuit, pennant, stencil2d
 REPO = Path(__file__).resolve().parent.parent
 SRC = str(REPO / "src")
 TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_REL = 2e-2
 
 JAX_SNIPPET = r"""
 import sys
@@ -46,6 +55,10 @@ for app in apps.iter_apps():
     if app.kind == "matmul":
         out[k] = ALGORITHMS[k].matmul(jnp.asarray(inp[k + ".a"]),
                                       jnp.asarray(inp[k + ".b"]), grid)
+        out[k + ".bf16"] = ALGORITHMS[k].matmul(
+            jnp.asarray(inp[k + ".a16"], jnp.bfloat16),
+            jnp.asarray(inp[k + ".b16"], jnp.bfloat16), grid,
+            use_kernel=True).astype(jnp.float32)
     elif k == "stencil":
         gx, gy = grid.shape
         cfg = stencil2d.StencilConfig(nx=16 * gx, ny=16 * gy, steps=2)
@@ -77,6 +90,9 @@ def _configs():
             size = 32 * max(grid)
             inputs[k + ".a"] = rng.normal(size=(size, size)).astype(np.float32)
             inputs[k + ".b"] = rng.normal(size=(size, size)).astype(np.float32)
+            for f in ("a16", "b16"):    # fp32 values that bf16 holds exactly
+                x = torch.from_numpy(rng.normal(size=(size, size)).astype(np.float32))
+                inputs[k + "." + f] = x.to(torch.bfloat16).float().numpy()
         elif k == "stencil":
             cfgs[k] = stencil2d.StencilConfig(nx=16 * grid[0], ny=16 * grid[1],
                                               steps=2)
@@ -150,6 +166,22 @@ def test_port_matches_jax_package(jax_run, name):
         assert tuple(value.shape) == outs[key].shape, key
         np.testing.assert_allclose(value.numpy(), outs[key], **TOL,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("name", [a.name for a in apps.iter_apps(kind=apps.MATMUL)])
+def test_port_matches_jax_package_bf16(jax_run, name):
+    """bf16 inputs through the kernel path on both sides."""
+    inputs, _, outs = jax_run
+    app = apps.get(name)
+    plan = app.spmd_plan(device="cpu")
+    grid = MatmulGrid(mesh=plan.mesh, axis_names=plan.axis_names)
+    mine = _inputs_of(inputs, name)
+    a, b = (torch.from_numpy(mine[f]).to(torch.bfloat16) for f in ("a16", "b16"))
+    got = ALGORITHMS[name].matmul(a, b, grid, use_kernel=True)
+    want = outs[name + ".bf16"]
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= BF16_REL * float(np.abs(want).max()), (err, float(np.abs(want).max()))
 
 
 def _cli(*args, env_extra=None):

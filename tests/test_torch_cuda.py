@@ -63,6 +63,43 @@ def test_matmul_kernel_matches_plain(card, shape, dtype):
     assert ops.launch_counts()["matmul"] == 1
 
 
+@pytest.mark.parametrize("shape,misaligned", [
+    # the bf16 kernel's tile edges (128 x 256 tiles, 64-deep stages): M
+    # 127-129 and 200, N 255-257, K 63-65 and 777, batch 1 and 3; K or N
+    # off a multiple of 8 takes the padded route
+    ((1, 127, 63, 255), False), ((3, 128, 64, 256), False), ((1, 129, 65, 257), False),
+    ((3, 200, 777, 256), False), ((1, 128, 64, 257), False), ((3, 129, 64, 255), False),
+    ((1, 200, 63, 256), False), ((3, 127, 65, 256), False),
+    ((2, 200, 64, 256), True),  # a 8 bytes off 16: copied
+])
+def test_matmul_bf16_kernel_tile_edges(card, shape, misaligned):
+    b, m, k, n = shape
+    gen = torch.Generator(device=card).manual_seed(m * n + k)
+    if misaligned:
+        a = torch.randn((b * m * k + 4,), generator=gen, device=card).bfloat16()[4:]
+        a = a.view(b, m, k)
+        assert a.data_ptr() % 16 == 8
+    else:
+        a = torch.randn((b, m, k), generator=gen, device=card).bfloat16()
+    w = torch.randn((b, k, n), generator=gen, device=card).bfloat16()
+    out = mm_mod.matmul_cuda(a, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (b, m, n)
+    torch.testing.assert_close(out.float(), ref.matmul(a, w).float(), **TOL[torch.bfloat16])
+    assert ops.launch_counts()["matmul"] == 1
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 2048, 2048), (8, 2048, 2048, 2048)])
+def test_matmul_bf16_app_blocks_reach_the_kernel_unpadded(card, shape):
+    """Every app block shape goes to the bf16 kernel as it is: the layout
+    step neither pads nor copies it."""
+    b, m, k, n = shape
+    a = torch.randn((b, m, k), device=card).bfloat16()
+    w = torch.randn((b, k, n), device=card).bfloat16()
+    a2, w2 = mm_mod.tma_operands(a, w)
+    assert a2 is a and w2 is w
+
+
 def test_matmul_kernel_broadcast_operand(card):
     a = torch.randn((2, 1, 64, 96), device=card).expand(2, 3, 64, 96)
     w = torch.randn((1, 3, 96, 32), device=card).expand(2, 3, 96, 32)
@@ -174,6 +211,12 @@ def _simulable(model, grid) -> bool:
     (2, 257, 4, 2, 64, 64, False),        # not causal, window
     (2, 256, 4, 2, 16, 0, True),          # d = 16 at S >= 256
     (1, 320, 4, 2, 128, 100, True),       # d = 128 at S >= 256, window
+    # the fp32 kernel's tile edges (128 queries at d <= 64, 64 above)
+    (2, 127, 4, 2, 64, 0, True),          # S = BQ - 1
+    (2, 128, 4, 2, 64, 0, True),          # S = BQ
+    (2, 129, 4, 2, 64, 0, True),          # S = BQ + 1
+    (2, 65, 4, 2, 128, 0, True),          # S = BQ + 1 at d = 128
+    (1, 257, 4, 2, 16, 0, True),          # d = 16, two query tiles and one row
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, B, S, H, Kv, d, window, causal,
@@ -210,11 +253,29 @@ def test_flash_attention_bf16_kernel_copies_misaligned_operands(card):
     padded = torch.randn((B, S, Kv * d + 4), generator=gen, device=card).to(torch.bfloat16)
     k = padded[..., 4:].unflatten(-1, (Kv, d))
     v = torch.randn((B, S, Kv, d), generator=gen, device=card).to(torch.bfloat16)
-    assert not fa_mod.bf16_ready(k) and fa_mod.bf16_ready(q)
+    assert not fa_mod.kernel_ready(k) and fa_mod.kernel_ready(q)
     out = fa_mod.flash_attention_cuda(q, k, v, window=50)
     expect = ops.flash_attention_plain(q, k, v, window=50)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), expect.float(), **TOL[torch.bfloat16])
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_fp32_kernel_copies_misaligned_operands(card):
+    """An fp32 k whose heads start 2 floats into a padded row (pointer 8
+    bytes off 16, seq stride 2 mod 4): the wrapper copies it, and the
+    kernel's answer stays right."""
+    B, S, H, Kv, d = 2, 200, 4, 2, 64
+    gen = torch.Generator(device=card).manual_seed(12)
+    q = torch.randn((B, S, H, d), generator=gen, device=card)
+    padded = torch.randn((B, S, Kv * d + 2), generator=gen, device=card)
+    k = padded[..., 2:].unflatten(-1, (Kv, d))
+    v = torch.randn((B, S, Kv, d), generator=gen, device=card)
+    assert not fa_mod.kernel_ready(k) and fa_mod.kernel_ready(q)
+    out = fa_mod.flash_attention_cuda(q, k, v, window=50)
+    expect = ops.flash_attention_plain(q, k, v, window=50)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, expect, **TOL[torch.float32])
     assert ops.launch_counts()["flash_attention"] == 1
 
 

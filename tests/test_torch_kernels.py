@@ -171,6 +171,39 @@ def test_build_compiles_every_kernel_source():
         assert sum(f'extern "C" int {name}(' in t for t in texts) == 1, name
 
 
+@pytest.mark.parametrize("b,m,k,n", [(2, 5, 13, 21), (1, 3, 7, 8), (3, 4, 16, 9),
+                                     (1, 129, 65, 257), (2, 6, 777, 30)])
+def test_tma_operands_pad_ragged_k_and_n(b, m, k, n):
+    """The bf16 kernel's layout step: K and N zero-padded to multiples of 8.
+    Pad, take the plain product and slice: the unpadded product, exactly
+    (small integers, so every fp32 sum is exact)."""
+    rng = np.random.default_rng(k * n)
+    a = torch.from_numpy(rng.integers(-2, 3, (b, m, k)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.integers(-2, 3, (b, k, n)).astype(np.float32)).bfloat16()
+    a2, w2 = mm_mod.tma_operands(a, w)
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    assert a2.shape == (b, m, kp) and w2.shape == (b, kp, np_)
+    assert all(x.data_ptr() % 16 == 0 and x.is_contiguous() for x in (a2, w2))
+    assert torch.equal(ref.matmul(a2, w2)[..., :n], ref.matmul(a, w))
+
+
+@pytest.mark.parametrize("b,m,k,n", [(4, 2048, 2048, 2048), (8, 2048, 2048, 2048),
+                                     (1, 64, 64, 64)])
+def test_tma_operands_keep_app_block_shapes(b, m, k, n):
+    """Every app block shape (K and N multiples of 8, fresh dense blocks)
+    reaches the kernel as it is: no padding, no copy. A misaligned operand
+    is copied to an aligned one with the same values."""
+    a = torch.zeros((b, m, k), dtype=torch.bfloat16)
+    w = torch.zeros((b, k, n), dtype=torch.bfloat16)
+    a2, w2 = mm_mod.tma_operands(a, w)
+    assert a2 is a and w2 is w
+    moved = torch.randn(b * m * k + 4).bfloat16()[4:].view(b, m, k)
+    assert moved.data_ptr() % 16 == 8
+    a3, w3 = mm_mod.tma_operands(moved, w)
+    assert a3 is not moved and a3.data_ptr() % 16 == 0 and torch.equal(a3, moved)
+    assert w3 is w
+
+
 def test_plain_matmul_keeps_fp32_out_of_tf32():
     ref.matmul(torch.ones(2, 2), torch.ones(2, 2))
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -292,19 +325,39 @@ def test_flash_bf16_wrapper_copies_only_what_the_kernel_cannot_read():
     whose data pointer or seq stride is not 16-byte aligned, into an
     aligned tensor with the same values."""
     x = torch.randn(2, 40, 3, 64).to(torch.bfloat16)
-    assert fa_mod.bf16_ready(x) and fa_mod.bf16_operand(x) is x
+    assert fa_mod.kernel_ready(x) and fa_mod.kernel_operand(x) is x
     heads = x[:, :, 1:]                              # offset of one head: 64 elements
-    assert fa_mod.bf16_ready(heads) and fa_mod.bf16_operand(heads) is heads
+    assert fa_mod.kernel_ready(heads) and fa_mod.kernel_operand(heads) is heads
     moved = torch.randn(2 * 40 * 3 * 64 + 4).to(torch.bfloat16)[4:].view(2, 40, 3, 64)
     padded = torch.randn(2, 40, 3 * 64 + 4).to(torch.bfloat16)[..., :192].unflatten(-1, (3, 64))
     half = torch.randn(2, 40, 3, 72).to(torch.bfloat16)[..., :64]   # fine: strides of 8
     for y, ready in ((moved, False), (padded, False), (half, True),
                      (x.transpose(1, 2), True), (x[..., ::2], False)):
-        assert fa_mod.bf16_ready(y) is ready
-        out = fa_mod.bf16_operand(y)
+        assert fa_mod.kernel_ready(y) is ready
+        out = fa_mod.kernel_operand(y)
         assert (out is y) is ready
-        assert fa_mod.bf16_ready(out) and torch.equal(out, y)
+        assert fa_mod.kernel_ready(out) and torch.equal(out, y)
     assert moved.is_contiguous() and moved.data_ptr() % 16 == 8
+
+
+def test_flash_fp32_wrapper_copies_only_what_the_kernel_cannot_read():
+    """The fp32 kernel's 16-byte cp.async rows: strides of 4 elements and a
+    16-byte aligned pointer are read in place (the transposed layout of
+    tests/test_torch_cuda.py's strided case too); a pointer 2 elements in,
+    a seq stride of 2 mod 4, or a strided last dim are copied."""
+    x = torch.randn(2, 40, 3, 64)
+    assert fa_mod.kernel_ready(x) and fa_mod.kernel_operand(x) is x
+    moved = torch.randn(2 * 40 * 3 * 64 + 2)[2:].view(2, 40, 3, 64)
+    padded = torch.randn(2, 40, 3 * 64 + 2)[..., :192].unflatten(-1, (3, 64))
+    quarter = torch.randn(2, 40, 3, 68)[..., :64]    # fine: strides of 4
+    for y, ready in ((moved, False), (padded, False), (quarter, True),
+                     (torch.randn(2, 3, 40, 64).transpose(1, 2), True),
+                     (x[..., ::2], False), (x[:, :, 1:], True)):
+        assert fa_mod.kernel_ready(y) is ready
+        out = fa_mod.kernel_operand(y)
+        assert (out is y) is ready
+        assert fa_mod.kernel_ready(out) and torch.equal(out, y)
+    assert moved.data_ptr() % 16 == 8
 
 
 def test_lm_kernel_wrappers_refuse_non_cuda_tensors():
