@@ -124,7 +124,17 @@ NVIDIA H100:
    decode check, batcher and CLI as in 12; phases 10, 12, 13 and 14 print
    their peak memory, and each frees its weights before the serving CLI
    draws its own (two copies of an MoE model do not fit on the card);
-15. drives the training path (no kernel: the plain path, as the reference
+15. drives the dry run (``repro_torch.launch.dryrun``): counts on the
+   meta device, at the shapes' global batch, hymba-1.5b and rwkv6-3b
+   prefill_32k and smollm-135m decode_32k, each within 30 s of host time;
+   runs them through ``run_cell(device="cuda")`` at full width and depth
+   (the prefills at B=1 through their kernels, each launched once a
+   layer, the decode at B=32 on its plain step), printing each cell's
+   seconds, peak memory, share of the bf16 peak and the term that bounds
+   it; holds the prefills' kernel route to their plain route at
+   S = 32768 at 2 layers in fp32 (10's and 12's limits); the phase must
+   end within 150 s;
+16. drives the training path (no kernel: the plain path, as the reference
    trains): the loop's train step on the card against the same step on
    the CPU on reduced fp32 smollm-135m (three steps, each from the CPU's
    state: losses within 1e-4, new parameters within 1e-4 wherever the
@@ -141,12 +151,13 @@ NVIDIA H100:
    within 1e-6 of an uninterrupted run's; ``use_kernel=True`` under
    autograd raising for flash, mamba_scan and wkv6 with no launch; one
    step each of hymba-1.5b and rwkv6-3b at full width and 2 layers;
-16. prints one JSON ``kernels`` line (matmul and stencil launches from the
+17. prints one JSON ``kernels`` line (matmul and stencil launches from the
    execute path, the bf16 matmul row's by app from the bf16 pass,
    segment_rowmax launches from the tune path and, by path,
    from phases 5-8, flash_attention launches summed over the hymba,
-   smollm and qwen2-moe prefills and by path, mamba_scan launches from
-   the hymba prefill, wkv6 launches from the rwkv6-3b prefill), the
+   smollm and qwen2-moe prefills and the dry run, and by path, mamba_scan
+   launches from the hymba prefill and the dry run, wkv6 launches from
+   the rwkv6-3b prefill and the dry run, each by path), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA card,
@@ -340,6 +351,26 @@ ADAM_REL, ADAM_LOOSE_SHARE = 1e-2, 2e-2
 ACCUM_LOSS_RTOL, ACCUM_GNORM_RTOL = 1e-4, 1e-3
 LOSS0_SLACK = 0.5                         # step 0 against ln(vocab)
 RESTART_RTOL = 1e-6
+# The dry run (launch/dryrun.py) with the CLI's default knobs (chunked
+# WKV): each card cell counted on the meta device at its shape's global
+# batch within DRYRUN_COUNT_S of host time, then run once on the card at
+# the batch it fits (hymba-1.5b and rwkv6-3b prefill_32k through their
+# kernels, the batch cut from 32 to 1; smollm-135m decode_32k on the plain
+# step, cut from 128 to 32: a 24.2 GB bf16 KV cache, where 128 would need
+# 96.6 GB); then each kernel of the prefill cells at the shape the cell
+# gives it (B = 1, S = 32768: bf16 flash at 25/5 heads of 64, window 1024;
+# mamba_scan at d_inner 3200, state 16; wkv6 at 40 heads of 64), its whole
+# output against its plain version within TOL; then the two prefill cells'
+# kernel route against their plain route (per-step scans) at S = 32768, at
+# DRYRUN_PARITY_LAYERS layers, in fp32, on the hidden states of every
+# position, within the prefill phases' limits. The phase must end within
+# DRYRUN_BUDGET_S.
+DRYRUN_CELLS = (("hymba-1.5b", "prefill_32k", 1, ("flash_attention", "mamba_scan")),
+                ("rwkv6-3b", "prefill_32k", 1, ("wkv6",)),
+                ("smollm-135m", "decode_32k", 32, ()))
+DRYRUN_COUNT_S = 30.0
+DRYRUN_PARITY_LAYERS = 2
+DRYRUN_BUDGET_S = 150.0
 # The launcher's restart run, and one step of the other families at their
 # published widths and 2 layers (their plain recurrences loop over time).
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps", "12", "--batch", "8",
@@ -2148,6 +2179,169 @@ def train_other_phase() -> None:
         torch.cuda.empty_cache()
 
 
+def _windowed_plain(q, k, v, window: int, block: int = 1024):
+    """``ops.flash_attention_plain`` at a length whose (S, S) scores do not
+    fit (25 heads at S = 32768 would take 107 GB): each block of queries
+    runs through it together with the window - 1 positions before the
+    block, which hold every key its queries see, and keeps its own rows."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    S = q.shape[1]
+    out = torch.empty_like(q)
+    for q0 in range(0, S, block):
+        k0, q1 = max(0, q0 - window + 1), min(S, q0 + block)
+        sub = ops.flash_attention_plain(q[:, k0:q1], k[:, k0:q1], v[:, k0:q1],
+                                        window=window)
+        out[:, q0:q1] = sub[:, q0 - k0:]
+    return out
+
+
+def dryrun_kernel_phase(prompt: int) -> dict[str, float]:
+    """Each kernel of the prefill cells at the shape the cell gives it
+    (B = 1, S = ``prompt``), its whole output against its plain version
+    within TOL, and its time there. Returns each kernel's max |diff|."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import mamba_scan as ms_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wkv_mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    errs = {}
+    H, Kv, d, window = 25, 5, 64, 1024
+    q, k, v = (torch.randn((1, prompt, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (H, Kv, Kv))
+    out = fa_mod.flash_attention_cuda(q, k, v, window=window)
+    expect = _windowed_plain(q, k, v, window)
+    torch.cuda.synchronize()
+    tag = f"flash_attention bfloat16 B=1 S={prompt} H={H}/{Kv} d={d} window={window}"
+    if not torch.isfinite(out.float()).all():
+        fail(f"dryrun {tag}: non-finite output")
+    errs["flash_attention"] = check_close("dryrun " + tag, out, expect, "bfloat16")
+    ms = time_ms(lambda: fa_mod.flash_attention_cuda(q, k, v, window=window), reps=5)
+    print(f"dryrun parity {tag}: max_abs_err={errs['flash_attention']:.3e} over the whole "
+          f"output; kernel {ms:.4f} ms")
+    del q, k, v, out, expect
+
+    di, n = 3200, 16
+    xs = 0.5 * torch.randn((1, prompt, di), generator=gen, device="cuda")
+    dtt = 0.2 * torch.nn.functional.softplus(
+        torch.randn((1, prompt, di), generator=gen, device="cuda"))
+    Bs, Cs = (0.5 * torch.randn((1, prompt, n), generator=gen, device="cuda")
+              for _ in range(2))
+    A = -torch.exp(0.3 * torch.randn((di, n), generator=gen, device="cuda"))
+    y, st = ms_mod.mamba_scan_cuda(xs, dtt, Bs, Cs, A)
+    y_ref, st_ref = ref.mamba_scan(xs, dtt, Bs, Cs, A)
+    torch.cuda.synchronize()
+    tag = f"mamba_scan float32 B=1 T={prompt} di={di} n={n}"
+    errs["mamba_scan"] = max(check_close(f"dryrun {tag} y", y, y_ref, "float32"),
+                             check_close(f"dryrun {tag} state", st, st_ref, "float32"))
+    ms = time_ms(lambda: ms_mod.mamba_scan_cuda(xs, dtt, Bs, Cs, A), reps=5)
+    print(f"dryrun parity {tag}: max_abs_err={errs['mamba_scan']:.3e} over y and the "
+          f"state; kernel {ms:.4f} ms")
+    del xs, dtt, Bs, Cs, y, st, y_ref, st_ref
+
+    r, k, v, w, u = _wkv6_inputs(gen, 1, prompt, RWKV_HEADS, RWKV_HEAD)
+    y, st = wkv_mod.wkv6_cuda(r, k, v, w, u)
+    y_ref, st_ref = ops.wkv6_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    tag = f"wkv6 float32 B=1 T={prompt} H={RWKV_HEADS} N={RWKV_HEAD}"
+    errs["wkv6"] = max(check_close(f"dryrun {tag} y", y, y_ref, "float32"),
+                       check_close(f"dryrun {tag} state", st, st_ref, "float32"))
+    ms = time_ms(lambda: wkv_mod.wkv6_cuda(r, k, v, w, u), reps=5)
+    print(f"dryrun parity {tag}: max_abs_err={errs['wkv6']:.3e} over y and the state; "
+          f"kernel {ms:.4f} ms")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def dryrun_phase() -> tuple[dict[str, int], dict[str, float]]:
+    """The dry run: meta counts of the card cells (each within
+    DRYRUN_COUNT_S), the card cells through ``run_cell(device="cuda")``
+    (each named kernel launched once a layer, no other), each of their
+    kernels against its plain version at the cell's shape, and the prefill
+    cells' kernel route against their plain route at S = 32768. Returns
+    the card cells' launches of each kernel (the ``dryrun`` path) and the
+    kernels' largest errors there."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, flops, knobs, roofline
+    from repro_torch.models.config import SHAPES
+
+    t0 = time.perf_counter()
+    knob = knobs.Knobs(wkv_impl="chunked")
+    for arch, shape, _, _ in DRYRUN_CELLS:
+        cfg = get_config(arch)
+        with knobs.apply(knob):
+            c = flops.count_cell(cfg, SHAPES[shape])
+        mf = roofline.model_flops(cfg, SHAPES[shape])
+        print(f"dryrun meta count {arch} x {shape} (B={SHAPES[shape].global_batch}): flops "
+              f"{c.flops:.6e}, model flops {mf:.6e}, useful {mf / c.flops:.4f}, unfused "
+              f"bytes {c.bytes_unfused:.6e}, count {c.seconds:.2f} s on the host")
+        if c.seconds > DRYRUN_COUNT_S:
+            fail(f"dryrun: the meta count of {arch} x {shape} took {c.seconds:.1f} s, "
+                 f"beyond {DRYRUN_COUNT_S} s")
+    launches = {k: 0 for k in LM_KERNELS}
+    for arch, shape, batch, kernels in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, device="cuda", batch=batch, knobs=knob)
+        torch.cuda.empty_cache()
+        if rec["status"] != "ok":
+            fail(f"dryrun {arch} x {shape} on the card: {rec.get('error')}\n"
+                 f"{rec.get('traceback', '')}")
+        layers = get_config(arch).n_layers
+        want = {k: layers if k in kernels else 0 for k in rec["launches"]}
+        if rec["launches"] != want:
+            fail(f"dryrun {arch} x {shape}: launches {rec['launches']}, expected {want}")
+        for k in LM_KERNELS:
+            launches[k] += rec["launches"][k]
+        rt = rec["roofline"]
+        print(f"dryrun card cell {arch} x {shape} B={rec['batch']} (cut from "
+              f"{rec['global_batch']}): step {rec['step_s']:.4f} s, peak memory "
+              f"{rec['peak_memory_bytes'] / 1e9:.2f} GB, counted flops at B (plain route) "
+              f"{rec['flops_at_batch']:.6e}, model flops at B "
+              f"{rec['model_flops_at_batch']:.6e}, roofline_share (model flops) "
+              f"{rec['roofline_share']:.4%} of 989 TFLOP/s, unfused bytes / s "
+              f"{rec['bytes_unfused_per_s_upper'] / 1e12:.3f} TB/s (an upper bound); at the "
+              f"shape's batch: compute {rt['compute_s']:.4e} s, memory <= "
+              f"{rt['memory_s']:.4e} s -> {rt['bottleneck']}-bound, useful "
+              f"{rt['useful_flops_ratio']:.4f}")
+    prompt = SHAPES["prefill_32k"].seq_len
+    errs = dryrun_kernel_phase(prompt)
+    for arch, tol, seed in ((LM_ARCH, PREFILL_TOL, 8), (RWKV_ARCH, RWKV_PREFILL_TOL, 9)):
+        cfg = dc.replace(get_config(arch), n_layers=DRYRUN_PARITY_LAYERS, dtype="float32")
+        model, params, (toks,) = dryrun.card_inputs(cfg, SHAPES["prefill_32k"], 1, seed=seed)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            out, _ = model.hidden_states(params, toks, use_kernel=True, remat=False)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with knobs.apply(knobs.Knobs(wkv_impl="scan")):
+                want, _ = model.hidden_states(params, toks, use_kernel=False, remat=False)
+        torch.cuda.synchronize()
+        err = _max_diff(out, want)
+        print(f"dryrun parity {arch} fp32 B=1 S={prompt} at {DRYRUN_PARITY_LAYERS} layers: "
+              f"kernels vs plain max |diff| {err:.3e} over the hidden states of all "
+              f"{prompt} positions (limit {tol}; max |h| {float(want.abs().max()):.3e}); "
+              f"kernels {t2 - t1:.2f} s, plain {time.perf_counter() - t2:.2f} s")
+        if not (torch.isfinite(out).all() and torch.allclose(out, want, **tol)):
+            fail(f"dryrun: {arch}'s kernel prefill at S={prompt} disagrees with the plain "
+                 f"prefill: max |diff| {err:.3e} beyond {tol}")
+        del model, params, toks
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"dryrun phase: {wall:.1f} s (budget {DRYRUN_BUDGET_S} s); launches {launches}")
+    if wall > DRYRUN_BUDGET_S:
+        fail(f"dryrun phase took {wall:.1f} s, beyond {DRYRUN_BUDGET_S} s")
+    return launches, errs
+
+
 def train_phase(smi: str) -> None:
     """The training path: card against CPU, the full-width smollm-135m run
     (with the accumulation check), the launcher's restart, the kernel
@@ -2236,8 +2430,15 @@ def main() -> int:
     lm_serving_phase(mla_state, MLA_ARCH)
     del mla_state
     torch.cuda.empty_cache()
+    dry, dry_err = dryrun_phase()
+    flash_paths["dryrun"] = dry["flash_attention"]
     counts["flash_attention"] = sum(flash_paths.values())
     rows["flash_attention"]["launches_by_path"] = flash_paths
+    for name, arch in (("mamba_scan", LM_ARCH), ("wkv6", RWKV_ARCH)):
+        rows[name]["launches_by_path"] = {arch: counts[name], "dryrun": dry[name]}
+        counts[name] += dry[name]
+    for name, err in dry_err.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     train_phase(smi)
 
     for name, row in rows.items():

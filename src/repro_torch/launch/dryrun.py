@@ -1,0 +1,282 @@
+"""Dry run of every (arch x shape) cell on one card: count, roofline, run.
+
+The port of ``repro.launch.dryrun``. The reference lowers and compiles
+each cell for a TPU mesh and reads its FLOPs, bytes and collectives from
+the HLO. With one card and no XLA, a cell here is:
+
+  * on ``--device meta``: the loop-aware count of the cell's step at the
+    shape's own global batch (``launch/flops.py``: the train step with
+    ``choose_microbatches``' accumulation, the plain prefill, or one
+    decode step), and the three roofline terms at one H100's rates
+    (``roofline.H100``); the memory term rests on unfused bytes, an upper
+    bound;
+  * on ``--device cuda`` (the default): the same count, then the step
+    once on the card at ``--batch`` (default: the shape's global batch)
+    from seeded weights, through the kernels for a prefill
+    (``use_kernel=True``; decode and train run their plain steps, as in
+    the reference). The record adds the step's warm seconds, its peak
+    memory, the kernels' launches, ``roofline_share`` and the unfused
+    bytes over the seconds (an upper bound on the bandwidth reached, not
+    a share). ``roofline_share`` is the model FLOPs at that batch
+    (``roofline.model_flops``) over the seconds and the bf16 peak: the
+    count is of the plain route, which computes attention chunk pairs
+    that the flash kernel skips (every causal pair, also those wholly
+    left of a sliding window), so it overstates the kernel route's work.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
+      --shape train_4k --device meta
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device meta \\
+      --out results/dryrun_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
+      --shape prefill_32k --batch 1
+
+``--mesh``, ``--mode`` and ``--no-seq-shard`` name a mesh of many cards;
+they are refused until the multi-card slice.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+# The record's mesh: one card, no mesh axes.
+MESH = "1card"
+
+
+def card_inputs(cfg, shape, batch: int, *, seed: int = 0):
+    """The model, seeded weights and the step's inputs for one cell at
+    ``batch``: (model, params, args) where args follow the params in the
+    step's call: the prompt (B, S) int32 (embeddings for stub front
+    ends), or a zero cache, the last position and one token, or a train
+    state and batch."""
+    from repro_torch.models.registry import build
+
+    device = "cuda"
+    model = build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    S = 1 if shape.kind == "decode" else shape.seq_len
+
+    def inputs():
+        if cfg.stub_frontend:
+            return torch.randn((batch, S, cfg.d_model), generator=gen, device=device,
+                               dtype=torch.bfloat16)
+        return torch.randint(0, cfg.vocab_size, (batch, S), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    if shape.kind == "prefill":
+        return model, params, (inputs(),)
+    if shape.kind == "decode":
+        cache = model.init_cache(batch, shape.seq_len, device=device)
+        return model, params, (cache, shape.seq_len - 1, inputs())
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.loop import TrainState
+
+    labels_shape = (batch, S, cfg.num_codebooks) if cfg.num_codebooks > 1 else (batch, S)
+    labels = torch.randint(0, cfg.vocab_size, labels_shape, generator=gen, device=device,
+                           dtype=torch.int32)
+    return model, TrainState(params, opt_mod.init(params)), ({"inputs": inputs(),
+                                                              "labels": labels},)
+
+
+def _card_step(cfg, shape, batch: int) -> dict:
+    """The cell's step once on the card after one warm run: seconds,
+    peak memory since a reset just before it, launches, finite output."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    model, first, args = card_inputs(cfg, shape, batch)
+    if shape.kind == "prefill":
+        step = steps.make_prefill_step(model, use_kernel=True)
+    elif shape.kind == "decode":
+        step = steps.make_serve_step(model)
+    else:
+        step = steps.make_train_step(model, dataclasses.replace(shape, global_batch=batch))
+    step(first, *args)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(first, *args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    value = out[1]["loss"] if shape.kind == "train" else (
+        out[0] if shape.kind == "decode" else out)
+    if not bool(torch.isfinite(value.float()).all()):
+        raise FloatingPointError(f"{cfg.name} x {shape.name}: non-finite step output")
+    return {"step_s": seconds, "peak_memory_bytes": peak, "launches": launches,
+            "output_shape": list(value.shape)}
+
+
+def run_cell(arch: str, shape_name: str, *, device: str = "cuda", batch: int | None = None,
+             knobs=None, verbose: bool = True, cfg=None) -> dict:
+    """One cell's record (the reference's fields, with one card in place of
+    the mesh and the run's seconds in place of ``compile_s``). ``cfg``
+    replaces ``arch``'s published config (a test's reduced one)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import flops, roofline
+    from repro_torch.launch import knobs as knobs_mod
+    from repro_torch.launch.specs import runnable
+    from repro_torch.models.config import SHAPES
+
+    if device not in ("meta", "cuda"):
+        raise ValueError(f"device {device!r}: the dry run counts on 'meta' and runs on 'cuda'")
+    if knobs is None:
+        knobs = knobs_mod.Knobs()
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = runnable(cfg, shape)
+    record: dict = {
+        "arch": arch, "shape": shape_name, "mesh": MESH, "device": device,
+        "status": "skipped" if not ok else "pending",
+    }
+    if not ok:
+        record["reason"] = why
+        if verbose:
+            print(f"[skip] {arch} x {shape_name} x {MESH}: {why}")
+        return record
+
+    t0 = time.time()
+    try:
+        with knobs_mod.apply(knobs):
+            costs = flops.count_cell(cfg, shape)
+            rt = roofline.terms(
+                arch, shape, cfg, MESH, 1,
+                {"flops": costs.flops, "bytes accessed": costs.bytes_unfused},
+                costs.collective_bytes, **roofline.H100)
+            record.update(
+                status="ok", n_chips=1, global_batch=shape.global_batch,
+                count_s=costs.seconds,
+                flops=rt.hlo_flops, bytes_accessed=rt.hlo_bytes,
+                bytes_unfused=costs.bytes_unfused, argument_bytes=costs.argument_bytes,
+                collective_bytes=costs.collective_bytes,
+                collectives={"bytes": costs.collective_by_kind},
+                roofline={
+                    "compute_s": rt.compute_s,
+                    "memory_s": rt.memory_s,
+                    "memory_s_is": "upper bound (unfused bytes)",
+                    "collective_s": rt.collective_s,
+                    "bottleneck": rt.bottleneck,
+                    "model_flops": rt.model_flops,
+                    "useful_flops_ratio": rt.flops_ratio,
+                    "rates": dict(roofline.H100),
+                },
+                knobs=dataclasses.asdict(knobs),
+            )
+            if device == "cuda":
+                used = batch or shape.global_batch
+                at = dataclasses.replace(shape, global_batch=used)
+                here = costs if used == shape.global_batch else flops.count_cell(cfg, at)
+                card = _card_step(cfg, shape, used)
+                record.update(
+                    card=torch.cuda.get_device_name(0), batch=used,
+                    flops_at_batch=here.flops, **card,
+                    model_flops_at_batch=roofline.model_flops(cfg, at),
+                    roofline_share=(roofline.model_flops(cfg, at)
+                                    / roofline.H100["peak_flops"] / card["step_s"]),
+                    bytes_unfused_per_s_upper=here.bytes_unfused / card["step_s"],
+                )
+                if used != shape.global_batch:
+                    record["reduced"] = {"global_batch": [shape.global_batch, used]}
+        record["run_s"] = time.time() - t0
+        if verbose:
+            print(f"[ok]   {arch} x {shape_name} x {MESH} ({record['run_s']:.1f}s, "
+                  f"count {costs.seconds:.1f}s)")
+            print(f"       cost: flops={rt.hlo_flops:.3e} "
+                  f"bytes_unfused={rt.hlo_bytes:.3e} coll=0.0MiB")
+            print(f"       roofline (H100): compute={rt.compute_s:.3e}s "
+                  f"memory<={rt.memory_s:.3e}s coll={rt.collective_s:.3e}s "
+                  f"-> {rt.bottleneck}-bound, useful={rt.flops_ratio:.2f}")
+            if device == "cuda":
+                print(f"       card: B={record['batch']} step {record['step_s']:.4f}s, "
+                      f"peak {record['peak_memory_bytes'] / 1e9:.2f} GB, "
+                      f"model flops at {record['roofline_share']:.2%} of the bf16 "
+                      f"peak, launches "
+                      f"{ {k: v for k, v in record['launches'].items() if v} }")
+    except Exception as e:  # noqa: BLE001 - report, continue the sweep
+        record.update(status="error", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-2000:])
+        if verbose:
+            print(f"[ERR]  {arch} x {shape_name} x {MESH}: {e}")
+    return record
+
+
+def main(argv=None) -> int:
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.knobs import Knobs
+    from repro_torch.models.config import SHAPES
+
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="all",
+                    help="arch id or 'all' (see repro_torch.configs)")
+    ap.add_argument("--shape", default="all",
+                    help="shape name or 'all' (train_4k, prefill_32k, "
+                         "decode_32k, long_500k)")
+    ap.add_argument("--all", action="store_true",
+                    help="every arch x shape (the defaults of --arch and --shape)")
+    ap.add_argument("--device", choices=("cuda", "meta"), default="cuda",
+                    help="meta: count only, no card; cuda (default): count, "
+                         "then run the step on the card (no fallback)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch of the card's run (default: the shape's global batch)")
+    ap.add_argument("--baseline", action="store_true",
+                    help="paper-faithful baseline knobs (scan WKV, no "
+                         "shard_map SP attention, no microbatching)")
+    ap.add_argument("--out", default=None, help="JSON output path")
+    for flag in ("--mesh", "--mode"):
+        ap.add_argument(flag, default=None, help="refused: names a mesh of many cards")
+    ap.add_argument("--no-seq-shard", action="store_true",
+                    help="refused: names a mesh of many cards")
+    args = ap.parse_args(argv)
+    for flag, value in (("--mesh", args.mesh), ("--mode", args.mode),
+                        ("--no-seq-shard", args.no_seq_shard)):
+        if value:
+            print(f"ERROR: {flag} names a sharding over a mesh of many cards; the "
+                  f"port runs on one card, and meshes come with the multi-card "
+                  f"slice", file=sys.stderr)
+            return 2
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("ERROR: --device cuda (the default) needs an NVIDIA GPU, and torch "
+              "finds no CUDA card here; pass --device meta to count without one",
+              file=sys.stderr)
+        return 2
+
+    knobs = (
+        Knobs(wkv_impl="scan", sp_attention=False, microbatch=1)
+        if args.baseline else Knobs(wkv_impl="chunked")
+    )
+    archs = ARCH_IDS if args.all or args.arch == "all" else [args.arch]
+    shapes = list(SHAPES) if args.all or args.shape == "all" else [args.shape]
+
+    records = []
+    t0 = time.time()
+    for arch in archs:
+        for shape in shapes:
+            records.append(run_cell(arch, shape, device=args.device,
+                                    batch=args.batch, knobs=knobs))
+            if args.device == "cuda":
+                torch.cuda.empty_cache()
+    ok = sum(r["status"] == "ok" for r in records)
+    skip = sum(r["status"] == "skipped" for r in records)
+    err = sum(r["status"] == "error" for r in records)
+    print(f"\n=== dry-run: {ok} ok, {skip} skipped, {err} errors, "
+          f"{time.time() - t0:.0f}s total ===")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(records, indent=1))
+        print(f"wrote {args.out}")
+    return 1 if err else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,10 +3,13 @@ prefill and decode branches).
 
 The reference builds a lowering cell per (arch x shape): a step callable
 plus abstract arguments and shardings for XLA. On one card the step
-callables are all that is left: sharding plans, abstract arguments and
-lowering wait for the multi-card and XLA-tools slices. The train step
-keeps the reference's gradient accumulation, with the accumulation
-factor from ``choose_microbatches``.
+callables are what is left: the abstract arguments are
+``launch/specs.py``'s meta tensors, and the dry run
+(``launch/dryrun.py``) counts a step on them in place of lowering it;
+sharding plans wait for the multi-card slice. The train step keeps the
+reference's gradient accumulation, with the accumulation factor from
+``choose_microbatches``; its loop over microbatches goes through
+``models/loops.py``, so the count takes one microbatch for all.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import loops
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.training import optimizer as opt_mod
@@ -21,17 +25,18 @@ from repro_torch.training.loop import TrainState, value_and_grad
 
 
 def choose_microbatches(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,
-                        model_size: int = 1, override: int = 0) -> int:
+                        model_size: int = 1) -> int:
     """Smallest accumulation factor whose live activation estimate fits.
 
     Estimate per device: saved residuals (seq-sharded when SP is on) +
     the cross-entropy logits block (vocab-sharded). ``dp`` and
     ``model_size`` are the mesh's data-parallel and model axes (1 and 1
-    on one card); ``override`` stands in for the reference's
-    ``knobs.active().microbatch``.
+    on one card). ``knobs.active().microbatch``, when set, decides.
     """
-    if override:
-        return override
+    from repro_torch.launch.knobs import active
+
+    if active().microbatch:
+        return active().microbatch
     b_dev = max(shape.global_batch // max(dp, 1), 1)
     sp = 16 if shape.seq_len % 16 == 0 else 1
     budget = 4.5e9
@@ -79,7 +84,7 @@ def make_train_step(model, shape: ShapeConfig,
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), state.params)
             acc = tree_leaves(grads)
-            for i in range(n_micro):
+            for i in loops.trips(n_micro, next(iter(batch.values()))):
                 mb = {k: v[i] for k, v in micro.items()}
                 mloss, g = value_and_grad(loss_of(mb), state.params)
                 for a, b in zip(acc, tree_leaves(g)):

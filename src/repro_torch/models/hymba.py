@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, loops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (
     ParamDef,
@@ -130,13 +130,13 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
     Bs = B_ssm.to(torch.float32)
     Cs = C_ssm.to(torch.float32)
     ys = []
-    for t in range(S):
+    for t in loops.trips(S, x):
         dt_t, B_t, C_t = dt[:, t], Bs[:, t], Cs[:, t]
         dA_t = torch.exp(dt_t[:, :, None] * A[None])            # (B,di,n)
         dBx_t = dt_t[:, :, None] * B_t[:, None, :] * xs32[:, t, :, None]
         state = dA_t * state + dBx_t
         ys.append(torch.einsum("bdn,bn->bd", state, C_t))
-    y = torch.stack(ys, dim=1).to(dt_)                   # (B,S,di)
+    y = loops.stack(ys, S, dim=1).to(dt_)                # (B,S,di)
     y = y + xs * params["D"].to(dt_)
     y = y * F.silu(z)
     return y @ params["w_out"].to(dt_), state, conv_state

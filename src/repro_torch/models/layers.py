@@ -15,9 +15,12 @@ substrate.
 """
 from __future__ import annotations
 
+from fractions import Fraction
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import loops
 from repro_torch.models.params import ParamDef, normal_init, ones_init
 
 # Above this sequence length attention always takes the online-softmax
@@ -100,7 +103,9 @@ def chunked_attention(q, k, v, *, window: int = 0, scale: float | None = None,
     chunk wholly after a query chunk's last position is skipped: its
     scores are masked to -1e30 after a chunk with unmasked keys (key 0 is
     in every query's causal window when it comes first), so it would add
-    exactly 0 to the sums and leave the running max as it is.
+    exactly 0 to the sums and leave the running max as it is. Every
+    (query chunk, key chunk) pair does the same products, so a loop-aware
+    count (``models/loops.py``) takes one pair for all of them.
     """
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
@@ -116,14 +121,16 @@ def chunked_attention(q, k, v, *, window: int = 0, scale: float | None = None,
     qr = q.reshape(B, nq, q_chunk, H, hd).permute(1, 0, 3, 2, 4)   # (nq,B,H,qc,hd)
     kr = k.reshape(B, nk, kv_chunk, Kv, hd).permute(1, 0, 3, 2, 4)
     vr = v.reshape(B, nk, kv_chunk, Kv, hd_v).permute(1, 0, 3, 2, 4)
+    # Key chunks each query chunk visits: all up to its last position.
+    spans = [min(nk, -(-(qi + 1) * q_chunk // kv_chunk)) for qi in range(nq)]
     outs = []
-    for qi in range(nq):
+    for qi in loops.trips(nq, q, nq):
         q_blk = qr[qi]
         q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
         acc = torch.zeros((B, H, q_chunk, hd_v), dtype=torch.float32, device=q.device)
         m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
         denom = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=q.device)
-        for ki in range(min(nk, -(-(qi + 1) * q_chunk // kv_chunk))):
+        for ki in loops.trips(spans[qi], q, Fraction(sum(spans), nq)):
             k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=q.device)
             k_rep = torch.repeat_interleave(kr[ki], groups, dim=1)     # (B,H,kc,hd)
             v_rep = torch.repeat_interleave(vr[ki], groups, dim=1)
@@ -139,7 +146,7 @@ def chunked_attention(q, k, v, *, window: int = 0, scale: float | None = None,
         out = acc / torch.clamp(denom[..., None], min=1e-30)
         outs.append(out.to(q.dtype))                                # (B,H,qc,hd)
     # (nq,B,H,qc,hd_v) -> (B, Sq, H, hd_v)
-    return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hd_v)
+    return loops.stack(outs, nq).permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hd_v)
 
 
 def attention(q, k, v, *, window: int = 0, scale: float | None = None,

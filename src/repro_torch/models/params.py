@@ -3,7 +3,8 @@
 The port of ``repro.models.params``. Every model defines a *schema* — a
 nested dict whose leaves are :class:`ParamDef` (shape + logical axes +
 initializer). From it come ``init_params`` (a nested dict of tensors,
-drawn from an explicit ``torch.Generator``) and ``param_count``.
+drawn from an explicit ``torch.Generator``), ``abstract_params`` (the
+same tree as empty meta tensors) and ``param_count``.
 
 ``params_from_numpy`` carries the JAX package's parameter tree across,
 key for key (as numpy arrays), so the port and the reference can be run
@@ -99,6 +100,16 @@ def init_params(schema: Schema, generator: torch.Generator, device="cuda") -> di
     package's: ``jax.random`` and ``torch.Generator`` differ; carry JAX
     weights across with :func:`params_from_numpy`."""
     return _walk(schema, lambda d, p: d.init(generator, d.shape, d.dtype, device))
+
+
+def abstract_params(schema: Schema, dtype=None) -> dict:
+    """The schema as empty tensors on the meta device, each of its
+    ``ParamDef``'s shape and dtype (or ``dtype``): the counterpart of the
+    reference's ``ShapeDtypeStruct`` tree, for a count that allocates
+    nothing. ``init_params`` cannot serve, since a ``torch.Generator``
+    cannot live on the meta device."""
+    return _walk(schema, lambda d, p: torch.empty(
+        d.shape, dtype=dtype if dtype is not None else d.dtype, device="meta"))
 
 
 def param_count(schema: Schema) -> int:

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, loops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (
     ParamDef,
@@ -122,13 +122,13 @@ def wkv6_scan(r, k, v, w, u, state):
     """
     S = r.shape[1]
     ys = []
-    for t in range(S):
+    for t in loops.trips(S, r):
         r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]   # (B,H,N)
         kv = k_t[..., :, None] * v_t[..., None, :]                 # (B,H,N,N)
         ys.append(torch.einsum("bhi,bhij->bhj", r_t,
                                state + u[None, :, :, None] * kv))
         state = w_t[..., :, None] * state + kv
-    return torch.stack(ys, dim=1), state
+    return loops.stack(ys, S, dim=1), state
 
 
 def wkv6_chunked(r, k, v, w, u, state, chunk: int = 64):
@@ -156,7 +156,7 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = 64):
     rc, kc, vc, wc = (reshape_c(t) for t in (r, k, v, w))   # (nc,B,H,Tc,N)
     mask = torch.tril(torch.ones((chunk, chunk), device=r.device), -1)
     ys = []
-    for c in range(nc):
+    for c in loops.trips(nc, r):
         r_b, k_b, v_b, w_b = rc[c], kc[c], vc[c], wc[c]       # (B,H,Tc,N)
         logw = torch.log(torch.clamp(w_b, min=1e-38))
         A = torch.exp(torch.cumsum(logw, dim=2))              # A_t, inclusive
@@ -176,7 +176,7 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = 64):
             "bhsn,bhsm->bhnm", k_b * (A[:, :, -1:, :] / A), v_b)
         ys.append(y)
     # (nc, B, H, Tc, N) -> (B, S, H, N)
-    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, S, H, N)
+    y = loops.stack(ys, nc).permute(1, 0, 3, 2, 4).reshape(B, S, H, N)
     return y, state
 
 

@@ -452,3 +452,48 @@ def test_reduced_rwkv6_prefill_through_the_kernel(card, d_model):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
     assert counts["wkv6"] == model.cfg.n_layers
     assert counts["flash_attention"] == 0 and counts["mamba_scan"] == 0
+
+
+# ----------------------------------------------------------------- dry run
+RECORD_FIELDS = ("status", "flops", "bytes_accessed", "bytes_unfused", "argument_bytes",
+                 "collective_bytes", "collectives", "roofline", "n_chips", "run_s", "count_s",
+                 "batch", "step_s", "peak_memory_bytes", "launches", "roofline_share",
+                 "bytes_unfused_per_s_upper", "flops_at_batch", "model_flops_at_batch",
+                 "reduced")
+ROOFLINE_FIELDS = ("compute_s", "memory_s", "collective_s", "bottleneck", "model_flops",
+                   "useful_flops_ratio")
+
+
+@pytest.mark.parametrize("arch,kernels,tol", [
+    ("hymba-1.5b", ("flash_attention", "mamba_scan"), dict(rtol=1e-2, atol=5e-2)),
+    ("rwkv6-3b", ("wkv6",), dict(rtol=2e-3, atol=2e-3)),
+])
+def test_dryrun_prefill_32k_cell_on_the_card(card, arch, kernels, tol):
+    """run_cell on the card: a reduced prefill at S = 32768 (B=1, cut from
+    32) launches each of its kernels once a layer, its record has every
+    field, and the kernel route matches the plain route on the same
+    weights (fp32; the limits of the reduced prefill tests above)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.config import SHAPES
+
+    cfg = get_config(arch).reduced()
+    rec = dryrun.run_cell(arch, "prefill_32k", device="cuda", batch=1, cfg=cfg, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert all(f in rec for f in RECORD_FIELDS)
+    assert all(f in rec["roofline"] for f in ROOFLINE_FIELDS)
+    assert rec["n_chips"] == 1 and rec["collective_bytes"] == 0.0
+    assert rec["reduced"] == {"global_batch": [32, 1]} and rec["batch"] == 1
+    assert rec["launches"] == {k: cfg.n_layers if k in kernels else 0
+                               for k in ops.launch_counts()}
+    assert rec["step_s"] > 0 and rec["peak_memory_bytes"] > 0
+    assert rec["model_flops_at_batch"] == pytest.approx(rec["roofline"]["model_flops"] / 32)
+    assert rec["roofline_share"] == pytest.approx(
+        rec["model_flops_at_batch"] / 989e12 / rec["step_s"])
+    assert rec["output_shape"] == [1, 1, cfg.padded_vocab]
+    model, params, (toks,) = dryrun.card_inputs(cfg, SHAPES["prefill_32k"], 1)
+    got = make_prefill_step(model)(params, toks)
+    want = make_prefill_step(model, use_kernel=False)(params, toks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **tol)

@@ -31,8 +31,8 @@ print("imported", len(names))
 """
 
 # The LM serving stack (MoE and MLA included), the tuner's service and
-# fault layers, and the training path: every module must be among those
-# imported.
+# fault layers, the training path and the dry run: every module must be
+# among those imported.
 LM_MODULES = [
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
     "repro_torch.models", "repro_torch.models.config",
@@ -54,6 +54,8 @@ LM_MODULES = [
     "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
     "repro_torch.checkpoint.manager", "repro_torch.runtime.compression",
     "repro_torch.launch.train",
+    "repro_torch.models.loops", "repro_torch.launch.knobs", "repro_torch.launch.specs",
+    "repro_torch.launch.roofline", "repro_torch.launch.flops", "repro_torch.launch.dryrun",
 ]
 
 

@@ -29,7 +29,7 @@ from repro.training import optimizer as jopt
 from repro_torch.configs import get_config
 from repro_torch.data import make_pipeline
 from repro_torch.kernels import ops
-from repro_torch.launch import steps
+from repro_torch.launch import knobs, steps
 from repro_torch.models import build, moe, params_from_numpy
 from repro_torch.models.config import SHAPES, ShapeConfig
 from repro_torch.models.params import tree_leaves
@@ -578,7 +578,8 @@ def test_choose_microbatches_matches_jax(arch, seq, batch):
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     assert steps.choose_microbatches(get_config(arch), shape) == \
         jsteps.choose_microbatches(jax_config(arch), shape, mesh)
-    assert steps.choose_microbatches(get_config(arch), shape, override=4) == 4
+    with knobs.apply(knobs.Knobs(microbatch=4)):
+        assert steps.choose_microbatches(get_config(arch), shape) == 4
 
 
 def test_smollm_full_width_accumulates_over_eight():
