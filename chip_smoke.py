@@ -134,7 +134,28 @@ NVIDIA H100:
    it; holds the prefills' kernel route to their plain route at
    S = 32768 at 2 layers in fp32 (10's and 12's limits); the phase must
    end within 150 s;
-16. drives the training path (no kernel: the plain path, as the reference
+16. drives the mesh layer on virtual ranks (``core/spmd.py``; every
+   rank's block on the card, else the run fails): smollm-135m at full
+   width and depth, fp32, B=4, S=2048 on a (data=2, model=4) mesh with
+   sequence sharding, its prefill through ``sp_attention`` (30 calls),
+   then 64 decode steps through ``sp_decode_attention`` (30 calls a
+   step) from a 2048-entry seeded cache, every position's hidden states,
+   the last logits and the decode's logits each held to the no-mesh run
+   within 1e-4 of their largest |entry|; qwen2-moe-a2.7b at full
+   width with capacity factor 16: layer 0's MoE block through
+   ``_moe_shard_map`` against ``_moe_dense`` (routing compared first, no
+   drops, 2e-3), then at 16 of its 24 layers the bf16 prefill through the
+   flash kernel and the EP MoE on the mesh, counters set to 0 just before
+   and read just after (flash once a layer), on the no-mesh kernel
+   prefill's routing and held to it (2e-2), and its fp32 twin the same
+   way (2e-3); the GPipe pipeline over pod=2 on smollm-135m's 30 blocks
+   (4 microbatches of 1, S=1024) against the sequential stack, the
+   blocks' output within 1e-4 of its largest |entry| and each leaf's
+   token-loss gradient within 5e-4 of the leaf's largest entry; each
+   path's wall with and without
+   the mesh, the call counts and peak memory; the phase must end within
+   150 s;
+17. drives the training path (no kernel: the plain path, as the reference
    trains): the loop's train step on the card against the same step on
    the CPU on reduced fp32 smollm-135m (three steps, each from the CPU's
    state: losses within 1e-4, new parameters within 1e-4 wherever the
@@ -151,11 +172,12 @@ NVIDIA H100:
    within 1e-6 of an uninterrupted run's; ``use_kernel=True`` under
    autograd raising for flash, mamba_scan and wkv6 with no launch; one
    step each of hymba-1.5b and rwkv6-3b at full width and 2 layers;
-17. prints one JSON ``kernels`` line (matmul and stencil launches from the
+18. prints one JSON ``kernels`` line (matmul and stencil launches from the
    execute path, the bf16 matmul row's by app from the bf16 pass,
    segment_rowmax launches from the tune path and, by path,
    from phases 5-8, flash_attention launches summed over the hymba,
-   smollm and qwen2-moe prefills and the dry run, and by path, mamba_scan
+   smollm and qwen2-moe prefills, the dry run and the mesh phase's
+   qwen2-moe prefill, and by path, mamba_scan
    launches from the hymba prefill and the dry run, wkv6 launches from
    the rwkv6-3b prefill and the dry run, each by path), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -371,6 +393,38 @@ DRYRUN_CELLS = (("hymba-1.5b", "prefill_32k", 1, ("flash_attention", "mamba_scan
 DRYRUN_COUNT_S = 30.0
 DRYRUN_PARITY_LAYERS = 2
 DRYRUN_BUDGET_S = 150.0
+# The mesh phase: the mesh layer on virtual ranks (core/spmd.py), every
+# rank's block on the card. smollm-135m at full width and depth, fp32,
+# B=4, S=2048 on a (data=2, model=4) mesh with sequence sharding: the
+# prefill through sp_attention (one call a layer), then
+# MESH_DECODE_STEPS decode steps through sp_decode_attention (kv heads 3
+# do not divide the model axis, so the cache shards on its sequence)
+# from a cache of MESH_DECODE_CACHE seeded entries; every position's
+# hidden states, the last logits and the decode's logits held to the
+# no-mesh run within MESH_TOL, its atol scaled by the largest |entry|
+# (``_scaled``). qwen2-moe-a2.7b at full width,
+# CAPACITY_FACTOR MESH_MOE_CAPACITY (no drops, so the expert-parallel and
+# dense paths agree; tests/test_distributed.py sets the same): layer 0's
+# MoE block through _moe_shard_map against _moe_dense, routing compared
+# first, then the prefill through the bf16 flash kernel and the EP MoE in
+# every layer, on the no-mesh kernel prefill's routing and held to it
+# within TOL["bfloat16"], its fp32 twin the same way within DECODE_TOL
+# (the MoE serving phase's limit). Its depth is cut to
+# MESH_MOE_LAYERS of 24: 16 layers' fp32 weights are 41.3 GB with the
+# embeddings, and one layer's EP or dense transients at this shape about
+# 20 GB, where 24 layers (60.59 GB) leave no room. The GPipe pipeline
+# over pod=2 on smollm-135m's 30 blocks, PIPE_MICRO microbatches of 1 at
+# S=PIPE_SEQ, against the sequential stack: the blocks' output within
+# the scaled MESH_TOL, each leaf's token-loss gradient within GRAD_TOL of
+# the leaf's largest entry. The phase must end within MESH_BUDGET_S.
+MESH_SHAPE = (2, 4)
+MESH_BATCH, MESH_PROMPT = 4, 2048
+MESH_DECODE_STEPS, MESH_DECODE_CACHE = 64, 2048
+MESH_TOL = TOL["float32"]
+MESH_MOE_CAPACITY = 16.0
+MESH_MOE_LAYERS = 16
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 2, 4, 1024
+MESH_BUDGET_S = 150.0
 # The launcher's restart run, and one step of the other families at their
 # published widths and 2 layers (their plain recurrences loop over time).
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps", "12", "--batch", "8",
@@ -2342,6 +2396,401 @@ def dryrun_phase() -> tuple[dict[str, int], dict[str, float]]:
     return launches, errs
 
 
+def _card_mesh(names: tuple[str, ...], shape: tuple[int, ...]):
+    """A mesh of virtual ranks as ``launch.mesh`` builds it; fails unless
+    it lives on the card."""
+    from repro_torch.launch.mesh import small_mesh
+
+    mesh = small_mesh(names, shape)
+    if mesh.device.type != "cuda":
+        fail(f"mesh: the virtual mesh {shape} lives on {mesh.device}, not the card")
+    return mesh
+
+
+def _mesh_calls(name: str) -> int:
+    from repro_torch.core import spmd
+
+    return spmd.counts().get(name, 0)
+
+
+def _hold(what: str, out, want, tol: dict) -> float:
+    """Fails unless ``out`` is finite and within ``tol`` of ``want``."""
+    import torch
+
+    err = _max_diff(out, want)
+    print(f"mesh: {what}: max |diff| {err:.3e} (limit {tol}; max |ref| "
+          f"{float(want.float().abs().max()):.3e})")
+    if not (torch.isfinite(out.float()).all()
+            and torch.allclose(out.float(), want.float(), **tol)):
+        fail(f"mesh: {what} beyond {tol}: max |diff| {err:.3e}")
+    return err
+
+
+def _scaled(want) -> dict:
+    """MESH_TOL with its atol scaled by the largest |entry| of ``want``
+    (at least 1): on random weights the residual stream reaches the
+    thousands and the final norm puts entries of 5 beside near-zero ones,
+    so two fp32 orders of summation differ by more than 1e-4 at the
+    large ones (``tests/test_torch_mesh.py::_close_scaled``)."""
+    top = max(1.0, float(want.float().abs().max()))
+    return dict(rtol=MESH_TOL["rtol"], atol=MESH_TOL["atol"] * top)
+
+
+def _turns(runs: dict) -> dict:
+    """Wall seconds of each named run in turns (a, b, b, a, a, b); the
+    medians."""
+    walls = {k: [] for k in runs}
+    a, b = runs
+    for k in (a, b, b, a, a, b):
+        walls[k].append(_wall_s(runs[k]))
+    return {k: statistics.median(v) for k, v in walls.items()}
+
+
+def _to_ranks(ids, B: int, S: int):
+    """Dense routing (1, B*S, K) in the order of the (data, model) mesh's
+    ranks: rank (d, m) holds batch block d, sequence block m."""
+    dp, ep = MESH_SHAPE
+    K = ids.shape[-1]
+    return (ids.reshape(dp, B // dp, ep, S // ep, K).transpose(1, 2)
+            .reshape(dp * ep, B * S // (dp * ep), K))
+
+
+def mesh_dense_phase(mesh, smi: str) -> None:
+    """smollm-135m on the mesh: the prefill through sp_attention and the
+    decode through sp_decode_attention, each against its no-mesh run."""
+    import torch
+
+    from repro_torch.core import spmd
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, mesh_settings
+    from repro_torch.models.config import ShapeConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    model = _full(DENSE_ARCH, "float32")
+    cfg, L, B = model.cfg, model.cfg.n_layers, MESH_BATCH
+    params = model.init(torch.Generator(device="cuda").manual_seed(11), device="cuda")
+    toks = _tokens(cfg, B, MESH_PROMPT, seed=12)
+    prefill = ShapeConfig("mesh_prefill", MESH_PROMPT, B, "prefill")
+    step = make_prefill_step(model, use_kernel=False)
+    with torch.no_grad():
+        want_h, _ = model.hidden_states(params, toks, remat=False)
+        want = step(params, toks)
+        with mesh_settings(cfg, prefill, mesh):
+            spmd.reset_counts()
+            h, _ = model.hidden_states(params, toks, remat=False)
+            torch.cuda.synchronize()
+            calls_h = _mesh_calls("sp_attention")
+            spmd.reset_counts()
+            out = step(params, toks)
+            torch.cuda.synchronize()
+            calls = _mesh_calls("sp_attention")
+    if calls_h != L or calls != L:
+        fail(f"mesh: smollm-135m's prefill called sp_attention {calls_h} and {calls} "
+             f"times, not once a layer ({L})")
+    _hold(f"{DENSE_ARCH} fp32 B={B} S={MESH_PROMPT} prefill, sp_attention on "
+          f"{MESH_SHAPE}, hidden states of every position", h, want_h, _scaled(want_h))
+    _hold(f"{DENSE_ARCH} prefill last logits", out, want, _scaled(want))
+    del h, want_h
+
+    def meshed():
+        with mesh_settings(cfg, prefill, mesh):
+            step(params, toks)
+
+    med = _turns({"no mesh": lambda: step(params, toks), "mesh": meshed})
+    print(f"mesh: {DENSE_ARCH} prefill wall s (median of 3): mesh {med['mesh']:.4f}, no mesh "
+          f"{med['no mesh']:.4f}; sp_attention calls {calls}; {smi}")
+
+    # Decode: the cache holds MESH_DECODE_CACHE seeded entries, then each
+    # step adds one (C divides by the model axis).
+    C = MESH_DECODE_CACHE + MESH_DECODE_STEPS
+    cache = model.init_cache(B, C, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for v in cache.values():
+        v[:, :, :MESH_DECODE_CACHE] = torch.randn(
+            v[:, :, :MESH_DECODE_CACHE].shape, generator=gen, device="cuda")
+    dtoks = _tokens(cfg, B, MESH_DECODE_STEPS, seed=14)
+    decode = ShapeConfig("mesh_decode", C, B, "decode")
+
+    def run(c, meshed: bool):
+        ctx = mesh_settings(cfg, decode, mesh) if meshed else contextlib.nullcontext()
+        serve, logits = make_serve_step(model), []
+        with ctx:
+            for t in range(MESH_DECODE_STEPS):
+                lg, c = serve(params, c, MESH_DECODE_CACHE + t, dtoks[:, t:t + 1])
+                logits.append(lg)
+        return torch.stack(logits)
+
+    # Each run writes its steps at slots past the seeded ones, each before
+    # it is read, so the two runs start from copies of one cache.
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    logits = {}
+    wall_plain = _wall_s(lambda: logits.update(plain=run(plain_cache, False)))
+    spmd.reset_counts()
+    wall_mesh = _wall_s(lambda: logits.update(mesh=run(cache, True)))
+    calls = _mesh_calls("sp_decode_attention")
+    if calls != MESH_DECODE_STEPS * L:
+        fail(f"mesh: the decode called sp_decode_attention {calls} times, not "
+             f"{MESH_DECODE_STEPS} x {L}")
+    _hold(f"{DENSE_ARCH} fp32 B={B} decode, {MESH_DECODE_STEPS} steps from a "
+          f"{MESH_DECODE_CACHE}-entry cache, sp_decode_attention on {MESH_SHAPE}, "
+          f"logits of every step", logits["mesh"], logits["plain"],
+          _scaled(logits["plain"]))
+    print(f"mesh: {DENSE_ARCH} decode wall s for {MESH_DECODE_STEPS} steps: mesh "
+          f"{wall_mesh:.3f}, no mesh {wall_plain:.3f}; sp_decode_attention calls {calls} "
+          f"({L} a step); peak memory {_peak_gb()}; {smi}")
+
+
+@contextlib.contextmanager
+def _capacity(factor: float):
+    from repro_torch.models import moe
+
+    saved, moe.CAPACITY_FACTOR = moe.CAPACITY_FACTOR, factor
+    try:
+        yield
+    finally:
+        moe.CAPACITY_FACTOR = saved
+
+
+def _flips(a, b) -> int:
+    """Tokens whose expert sets differ between two routings."""
+    import torch
+
+    return int((torch.sort(a, dim=-1).values != torch.sort(b, dim=-1).values).any(-1).sum())
+
+
+def mesh_moe_block_phase(mesh, smi: str) -> None:
+    """qwen2-moe-a2.7b's layer-0 MoE block at full width (only its weights
+    drawn), B=4, S=2048: _moe_shard_map on the mesh against _moe_dense,
+    routing compared first (and replayed if it flipped)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.launch.steps import mesh_settings
+    from repro_torch.models import moe
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.params import init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    B, S, D = MESH_BATCH, MESH_PROMPT, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    params = init_params(moe.moe_schema(cfg), gen, "cuda")
+    x = torch.randn((B, S, D), generator=gen, device="cuda")
+    x = x / x.pow(2).mean(-1, keepdim=True).sqrt()     # unit RMS, as ffn_norm hands it
+    shape = ShapeConfig("mesh_prefill", S, B, "prefill")
+    with torch.no_grad(), _capacity(MESH_MOE_CAPACITY):
+        with _routing() as log_d:
+            want, want_aux = moe._moe_dense(params, x, cfg)
+        with mesh_settings(cfg, shape, mesh), _routing() as log_e:
+            spmd.reset_counts()
+            out, aux = moe.moe_apply(params, x, cfg)
+            torch.cuda.synchronize()
+            calls = _mesh_calls("moe_shard_map")
+        if calls != 1:
+            fail(f"mesh: moe_apply on the mesh took _moe_shard_map {calls} times, not once")
+        ranks = _to_ranks(log_d[0]["ids"], B, S)
+        Nl = ranks.shape[1]
+        C = moe.capacity(Nl, cfg.n_experts, cfg.topk)
+        _, keep = moe.dispatch_slots(log_e[0]["ids"], cfg.padded_experts, C)
+        _, keep_d = moe.dispatch_slots(log_d[0]["ids"], cfg.padded_experts,
+                                       moe.dispatch_capacity(B * S, cfg))
+        if not (bool(keep.all()) and bool(keep_d.all())):
+            fail(f"mesh: at capacity factor {MESH_MOE_CAPACITY} a path dropped tokens "
+                 f"(EP {int((~keep).sum())}, dense {int((~keep_d).sum())}): the two "
+                 f"paths agree only without drops")
+        flips = _flips(log_e[0]["ids"], ranks)
+        print(f"mesh: {MOE_ARCH} layer-0 MoE block fp32 B={B} S={S}, EP on {MESH_SHAPE} "
+              f"(capacity {C} a rank, factor {MESH_MOE_CAPACITY:g}) vs dense: routing "
+              f"identical for {B * S - flips} of {B * S} tokens, no drops in either")
+        if flips:
+            with mesh_settings(cfg, shape, mesh), _routing([ranks]) as log_r:
+                out, aux = moe.moe_apply(params, x, cfg)
+            _routing_check(f"{MOE_ARCH} EP block on the dense routing", log_r, log_d,
+                           [(b + 1) * S - 1 for b in range(B)])
+        _hold(f"{MOE_ARCH} layer-0 MoE block, _moe_shard_map vs _moe_dense", out, want,
+              DECODE_TOL)
+        print(f"mesh: {MOE_ARCH} block aux {float(aux):.6f} vs dense {float(want_aux):.6f} "
+              f"(the EP z-loss term is rank 0's, as in the reference; reported)")
+
+        def meshed():
+            with mesh_settings(cfg, shape, mesh):
+                moe.moe_apply(params, x, cfg)
+
+        med = _turns({"dense": lambda: moe._moe_dense(params, x, cfg), "EP": meshed})
+    print(f"mesh: {MOE_ARCH} block wall s (median of 3): EP {med['EP']:.4f}, dense "
+          f"{med['dense']:.4f}; peak memory {_peak_gb()}; {smi}")
+
+
+def mesh_moe_prefill_phase(mesh, smi: str) -> int:
+    """qwen2-moe-a2.7b at full width and MESH_MOE_LAYERS layers on the
+    mesh: the counted bf16 prefill through the flash kernel and the EP MoE
+    (flash once a layer), the fp32 twin against the no-mesh kernel prefill
+    on shared routing. Returns the counted run's flash launches."""
+    import torch
+
+    from repro_torch.core import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, mesh_settings
+    from repro_torch.models.config import ShapeConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    model = _full(MOE_ARCH, "bfloat16", MESH_MOE_LAYERS)
+    model32 = _full(MOE_ARCH, "float32", MESH_MOE_LAYERS)
+    cfg, B, S, L = model.cfg, MESH_BATCH, MESH_PROMPT, MESH_MOE_LAYERS
+    params = model.init(torch.Generator(device="cuda").manual_seed(16), device="cuda")
+    toks = _tokens(cfg, B, S, seed=17)
+    shape = ShapeConfig("mesh_prefill", S, B, "prefill")
+    kern, kern32 = make_prefill_step(model), make_prefill_step(model32)
+    expect = {k: L if k == "flash_attention" else 0 for k in ops.launch_counts()}
+    last = [(b + 1) * S - 1 for b in range(B)]
+    with _capacity(MESH_MOE_CAPACITY):
+        with _routing() as log_b:
+            ref = kern(params, toks)
+        # The main path: one counted bf16 prefill on the mesh, replaying
+        # the no-mesh run's routing.
+        with mesh_settings(cfg, shape, mesh), \
+                _routing([_to_ranks(p["ids"], B, S) for p in log_b]) as log_rb:
+            spmd.reset_counts()
+            out, counts = _counted(kern, params, toks, expect,
+                                   f"{MOE_ARCH} bf16 prefill on the mesh")
+            calls = _mesh_calls("moe_shard_map")
+        if calls != L:
+            fail(f"mesh: {MOE_ARCH}'s prefill took _moe_shard_map {calls} times, not "
+                 f"once a layer ({L})")
+        print(f"mesh: {MOE_ARCH} bf16 kernel prefill B={B} S={S} at {L} layers: flash "
+              f"launches {counts['flash_attention']}, _moe_shard_map calls {calls}")
+        _routing_check(f"{MOE_ARCH} bf16 mesh prefill on the no-mesh routing", log_rb, log_b,
+                       last)
+        _hold(f"{MOE_ARCH} bf16 kernel prefill at {L} layers, mesh (EP MoE) vs no mesh, "
+              f"shared routing, last logits", out, ref, TOL["bfloat16"])
+        with _routing() as log_p:
+            ref32, _ = _counted(kern32, params, toks, expect, f"{MOE_ARCH} fp32 prefill")
+        with mesh_settings(cfg, shape, mesh), _routing() as log_f:
+            free32 = kern32(params, toks)
+        flips = sum(_flips(f["ids"], _to_ranks(p["ids"], B, S)) for f, p in zip(log_f, log_p))
+        print(f"mesh: {MOE_ARCH} fp32 kernel prefill, mesh vs no mesh each routing freely: "
+              f"{flips} of {B * S * L} (token, layer) expert sets differ, last logits max "
+              f"|diff| {_max_diff(free32, ref32):.3e} (reported)")
+        replay = [_to_ranks(p["ids"], B, S) for p in log_p]
+        with mesh_settings(cfg, shape, mesh), _routing(replay) as log_r:
+            out32 = kern32(params, toks)
+        _routing_check(f"{MOE_ARCH} fp32 mesh prefill on the no-mesh routing", log_r, log_p,
+                       last)
+        _hold(f"{MOE_ARCH} fp32 kernel prefill at {L} layers, mesh (EP MoE) vs no mesh, "
+              f"shared routing, last logits", out32, ref32, DECODE_TOL)
+
+        def meshed():
+            with mesh_settings(cfg, shape, mesh):
+                kern(params, toks)
+
+        med = _turns({"no mesh": lambda: kern(params, toks), "mesh": meshed})
+    print(f"mesh: {MOE_ARCH} bf16 kernel prefill wall s (median of 3): mesh "
+          f"{med['mesh']:.4f}, no mesh {med['no mesh']:.4f}; peak memory {_peak_gb()} "
+          f"(weights {_weights_gb(params):.2f} GB); {smi}")
+    return counts["flash_attention"]
+
+
+def mesh_pipeline_phase(smi: str) -> None:
+    """The GPipe pipeline over pod=PIPE_STAGES on smollm-135m's 30 blocks
+    at full width against the sequential stack: the blocks' output, and
+    the gradient of the token loss (final norm, tied unembedding,
+    cross-entropy on seeded labels) in every block weight: the output
+    within MESH_TOL scaled by its largest |entry| (``_scaled``), the
+    gradients leaf by leaf within GRAD_TOL of the leaf's largest entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import spmd
+    from repro_torch.models import layers
+    from repro_torch.models.params import tree_leaves, tree_map, unstack
+    from repro_torch.models.transformer import block_apply
+    from repro_torch.training.pipeline import bubble_fraction, pipelined_apply, split_stages
+
+    model = _full(DENSE_ARCH, "float32")
+    cfg, M = model.cfg, PIPE_MICRO
+    params = model.init(torch.Generator(device="cuda").manual_seed(18), device="cuda")
+    labels = _tokens(cfg, M, PIPE_SEQ, seed=20).reshape(-1)
+    with torch.no_grad():
+        x = layers.embed(params["embed"], _tokens(cfg, M, PIPE_SEQ, seed=19), torch.float32)
+    x = x.reshape(M, 1, PIPE_SEQ, cfg.d_model)
+    positions = torch.arange(PIPE_SEQ, device="cuda")[None, :]
+
+    def layer_fn(p, h):
+        return block_apply(p, h, cfg, positions)[0]
+
+    def loss_fn(y, p):
+        h = layers.rmsnorm(p["final_norm"], y.reshape(-1, cfg.d_model), cfg.norm_eps)
+        return F.cross_entropy(layers.unembed(p["embed"], h), labels)
+
+    def sequential(p):
+        stack = tree_map(lambda t: t.detach().requires_grad_(True), p["dense_layers"])
+        h = x.to(p["final_norm"]["scale"].dtype).reshape(M, PIPE_SEQ, cfg.d_model)
+        for lp in unstack(stack):
+            h = layer_fn(lp, h)
+        y = h.reshape(x.shape)
+        return y.detach(), torch.autograd.grad(loss_fn(y, p), tree_leaves(stack))
+
+    mesh = _card_mesh(("pod",), (PIPE_STAGES,))
+    apply = pipelined_apply(layer_fn, mesh, n_microbatches=M)
+    res, walls, peaks = {}, {}, {}
+
+    def pipelined():
+        stack = tree_map(lambda t: t.detach().requires_grad_(True), params["dense_layers"])
+        spmd.reset_counts()
+        y = apply(split_stages(stack, PIPE_STAGES), x)
+        res["pipe"] = (y.detach(), torch.autograd.grad(loss_fn(y, params), tree_leaves(stack)))
+        res["ticks"] = _mesh_calls("ppermute")
+
+    for name, fn in (("pipelined", pipelined),
+                     ("sequential", lambda: res.update(seq=sequential(params)))):
+        torch.cuda.reset_peak_memory_stats()
+        walls[name] = _wall_s(fn)
+        peaks[name] = _peak_gb()
+    if res["ticks"] != M + PIPE_STAGES - 1:
+        fail(f"mesh: the pipeline ran {res['ticks']} ppermute ticks, not "
+             f"{M + PIPE_STAGES - 1}")
+    _hold(f"{DENSE_ARCH} pipeline over pod={PIPE_STAGES}, {M} microbatches of 1 at "
+          f"S={PIPE_SEQ}, pipelined vs sequential blocks' output", res["pipe"][0],
+          res["seq"][0], _scaled(res["seq"][0]))
+    worst = 0.0
+    for g, g_seq in zip(res["pipe"][1], res["seq"][1]):
+        e = _max_diff(g, g_seq) / max(float(g_seq.abs().max()), 1e-30)
+        if not e <= GRAD_TOL:
+            fail(f"mesh: a pipeline gradient is {e:.3e} of its leaf's largest entry from "
+                 f"the sequential stack's, beyond {GRAD_TOL}")
+        worst = max(worst, e)
+    print(f"mesh: pipeline token-loss gradients of {len(res['pipe'][1])} stacked leaves, "
+          f"pipelined vs sequential: worst max |diff| {worst:.3e} of a leaf's largest "
+          f"entry (limit {GRAD_TOL})")
+    print(f"mesh: pipeline forward + backward wall s: pipelined {walls['pipelined']:.3f} "
+          f"({M + PIPE_STAGES - 1} ticks, bubble fraction "
+          f"{bubble_fraction(PIPE_STAGES, M):.3f}), sequential {walls['sequential']:.3f}; "
+          f"peak memory pipelined {peaks['pipelined']}, sequential {peaks['sequential']}; "
+          f"{smi}")
+
+
+def mesh_phase(smi: str) -> int:
+    """The mesh layer on virtual ranks on the card. Returns the flash
+    launches of its counted qwen2-moe prefill."""
+    import torch
+
+    t0 = time.perf_counter()
+    mesh = _card_mesh(("data", "model"), MESH_SHAPE)
+    mesh_dense_phase(mesh, smi)
+    torch.cuda.empty_cache()
+    mesh_moe_block_phase(mesh, smi)
+    torch.cuda.empty_cache()
+    flash = mesh_moe_prefill_phase(mesh, smi)
+    torch.cuda.empty_cache()
+    mesh_pipeline_phase(smi)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"mesh phase: {wall:.1f} s (budget {MESH_BUDGET_S} s)")
+    if wall > MESH_BUDGET_S:
+        fail(f"mesh phase took {wall:.1f} s, beyond {MESH_BUDGET_S} s")
+    return flash
+
+
 def train_phase(smi: str) -> None:
     """The training path: card against CPU, the full-width smollm-135m run
     (with the accumulation check), the launcher's restart, the kernel
@@ -2432,6 +2881,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry, dry_err = dryrun_phase()
     flash_paths["dryrun"] = dry["flash_attention"]
+    flash_paths["mesh"] = mesh_phase(smi)
     counts["flash_attention"] = sum(flash_paths.values())
     rows["flash_attention"]["launches_by_path"] = flash_paths
     for name, arch in (("mamba_scan", LM_ARCH), ("wkv6", RWKV_ARCH)):

@@ -10,8 +10,9 @@ Layout:  <dir>/step_<N>/
 
 so a checkpoint either package writes restores in the other (every leaf
 of a train state is fp32 or int32). Arrays are saved as host copies and
-placed on the ``device`` that ``restore`` is given, the counterpart of
-the reference's ``shardings``.
+placed on the ``device`` that ``restore`` is given, or, leaf by leaf, on
+the mesh device of the ``shardings`` it is given (a sharding plan's
+records, checked to split evenly: the elastic restore onto a new mesh).
 
 Async mode ships the host copy off-thread so the train loop only blocks
 on the device-to-host copy, not on disk I/O.
@@ -150,10 +151,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int | None = None, device=None,
-                verify: bool = True) -> tuple[int, dict, dict]:
+                verify: bool = True, shardings=None) -> tuple[int, dict, dict]:
         """Returns (step, state, extra): the state a tree of tensors on
         ``device``, or on the host when it is None (the reference's
-        restore without shardings)."""
+        restore without shardings). ``shardings``: an optional tree of
+        ``launch.policy.NamedSharding`` records (a plan's, for a possibly
+        different mesh); each leaf it names goes to its mesh's device,
+        global, after a check that every dim it shards splits evenly."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -166,6 +170,15 @@ class CheckpointManager:
             for k, meta in manifest["arrays"].items():
                 if _sha(host[k]) != meta["sha256"]:
                     raise IOError(f"checkpoint corruption in {k} at step {step}")
-        placed = {k: torch.from_numpy(v) if device is None
-                  else torch.from_numpy(v).to(device) for k, v in host.items()}
+        flat_shardings = _flatten(shardings) if shardings is not None else {}
+        placed = {}
+        for k, v in host.items():
+            t = torch.from_numpy(v)
+            s = flat_shardings.get(k)
+            if s is not None:
+                s.apply(t)                 # raises unless the blocks split evenly
+                t = t.to(s.mesh.device)
+            elif device is not None:
+                t = t.to(device)
+            placed[k] = t
         return step, _unflatten(placed), manifest["extra"]

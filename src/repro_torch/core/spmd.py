@@ -15,6 +15,14 @@ below, with block-relative non-negative dims as JAX does); the collectives
 map axis names to stacked dims through the context :func:`shard_map` sets
 while the body runs.
 
+A partition-spec entry may name several mesh axes, ``P(("pod", "data"),
+"model")``: that tensor dim splits over all of them, the first the major,
+as in JAX. A mesh is *in scope* inside ``with use_mesh(mesh):`` (the
+counterpart of the reference's ``with mesh:``, read by
+:func:`current_mesh`); that is apart from the mesh a running body sees.
+:func:`count` tallies the collectives and the mesh paths that call it,
+so a test can tell that a mesh path really ran.
+
 The mesh records which virtual device id sits at each mesh coordinate
 (``device_ids = device_permutation.reshape(tile_grid)``): the Mapple
 mapper's decision. Numerics never depend on it, exactly as a JAX mesh's
@@ -23,6 +31,7 @@ device order does not change what a shard_map program computes;
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import dataclasses
@@ -75,18 +84,69 @@ class Mesh:
 
 
 class P(tuple):
-    """Partition spec: one mesh axis name (or None) per global tensor dim."""
+    """Partition spec: per global tensor dim, one mesh axis name, a tuple
+    of names (the dim splits over all of them, major to minor), or None.
+    A tuple of one name is that name, and an empty one None, as in JAX."""
 
-    def __new__(cls, *axes: str | None):
+    def __new__(cls, *axes):
+        entries = []
         for a in axes:
-            if a is not None and not isinstance(a, str):
+            names = a if isinstance(a, tuple) else (a,)
+            if a is not None and not all(isinstance(n, str) for n in names):
                 raise TypeError(
-                    f"partition spec entries are axis names or None, got {a!r}"
+                    f"partition spec entries are axis names, tuples of axis "
+                    f"names or None, got {a!r}"
                 )
-        return super().__new__(cls, axes)
+            if isinstance(a, tuple) and len(a) < 2:
+                a = a[0] if a else None
+            entries.append(a)
+        return super().__new__(cls, entries)
 
     def __repr__(self) -> str:
         return "P(" + ", ".join(repr(a) for a in self) + ")"
+
+
+def _names(entry) -> tuple[str, ...]:
+    """The mesh axes a spec entry splits its dim over, major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+_COUNTS: collections.Counter = collections.Counter()
+
+
+def count(name: str) -> None:
+    """Add one to ``name``'s tally (a collective or a mesh path)."""
+    _COUNTS[name] += 1
+
+
+def counts() -> dict[str, int]:
+    return dict(_COUNTS)
+
+
+def reset_counts() -> None:
+    _COUNTS.clear()
+
+
+_SCOPE: contextvars.ContextVar[Mesh | None] = contextvars.ContextVar(
+    "spmd_scope", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh | None):
+    """Put ``mesh`` in scope (None: no mesh) for the block: the reference's
+    ``with mesh:``. The model code reads it through :func:`current_mesh`."""
+    token = _SCOPE.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _SCOPE.reset(token)
+
+
+def current_mesh() -> Mesh | None:
+    """The mesh in scope, or None."""
+    return _SCOPE.get()
 
 
 _MESH: contextvars.ContextVar[Mesh | None] = contextvars.ContextVar(
@@ -110,45 +170,46 @@ def _mesh() -> Mesh:
     return mesh
 
 
-def _spec_for(spec: Sequence[str | None], ndim: int, mesh: Mesh) -> tuple:
+def _spec_for(spec: Sequence, ndim: int, mesh: Mesh) -> tuple:
     spec = tuple(spec)
     if len(spec) > ndim:
         raise ValueError(f"spec {spec} has more entries than the tensor's "
                          f"{ndim} dims")
     spec = spec + (None,) * (ndim - len(spec))
-    named = [a for a in spec if a is not None]
+    named = [a for e in spec for a in _names(e)]
     if len(set(named)) != len(named):
-        raise ValueError(f"spec {spec} partitions two dims over one axis")
+        raise ValueError(f"spec {spec} partitions over one axis twice")
     for a in named:
         mesh.axis(a)
     return spec
 
 
-def split(x: torch.Tensor, spec: Sequence[str | None], mesh: Mesh
-          ) -> torch.Tensor:
+def split(x: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
     """Global tensor -> stacked ``(*mesh.shape, *block)`` view.
 
     Dim ``d`` partitioned over axis ``a`` is cut into ``mesh.axis_size(a)``
     equal blocks, block ``i`` going to mesh coordinate ``i`` along ``a``
-    (JAX's rule). Axes the spec does not name are broadcast (``expand``).
+    (JAX's rule); over axes ``(a, b)`` it is cut into ``|a| * |b|`` blocks,
+    block ``i * |b| + j`` going to coordinate ``(i, j)``. Axes the spec does
+    not name are broadcast (``expand``).
     """
     spec = _spec_for(spec, x.ndim, mesh)
     shape: list[int] = []
     mesh_dim = {}                          # axis name -> dim in `shape`
     block_dims = []
-    for d, a in enumerate(spec):
+    for d, e in enumerate(spec):
         n = int(x.shape[d])
-        if a is None:
-            shape.append(n)
-        else:
-            g = mesh.axis_size(a)
-            if n % g:
-                raise ValueError(
-                    f"dim {d} of size {n} does not split evenly over mesh "
-                    f"axis {a!r} of size {g}"
-                )
+        names = _names(e)
+        g = int(np.prod([mesh.axis_size(a) for a in names], dtype=np.int64))
+        if n % g:
+            raise ValueError(
+                f"dim {d} of size {n} does not split evenly over mesh "
+                f"axes {names} of size {g}"
+            )
+        for a in names:
             mesh_dim[a] = len(shape)
-            shape += [g, n // g]
+            shape.append(mesh.axis_size(a))
+        shape.append(n // g)
         block_dims.append(len(shape) - 1)
     y = x.reshape(shape)
     present = [a for a in mesh.axis_names if a in mesh_dim]
@@ -159,8 +220,7 @@ def split(x: torch.Tensor, spec: Sequence[str | None], mesh: Mesh
     return y.expand(*mesh.shape, *y.shape[mesh.ndim:])
 
 
-def assemble(y: torch.Tensor, spec: Sequence[str | None], mesh: Mesh
-             ) -> torch.Tensor:
+def assemble(y: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
     """Stacked ``(*mesh.shape, *block)`` -> global tensor (inverse of split).
 
     Mesh axes the spec does not name must hold replicas; coordinate 0 is
@@ -171,20 +231,20 @@ def assemble(y: torch.Tensor, spec: Sequence[str | None], mesh: Mesh
                          f"lead with the mesh shape {mesh.shape}")
     nblock = y.ndim - mesh.ndim
     spec = _spec_for(spec, nblock, mesh)
-    keep = [a for a in mesh.axis_names if a in spec]
-    index = tuple(slice(None) if a in spec else 0 for a in mesh.axis_names)
+    named = {a for e in spec for a in _names(e)}
+    keep = [a for a in mesh.axis_names if a in named]
+    index = tuple(slice(None) if a in named else 0 for a in mesh.axis_names)
     y = y[index]                           # (*kept mesh dims, *block)
     order, shape = [], []
-    for d, a in enumerate(spec):
+    for d, e in enumerate(spec):
         b = len(keep) + d
-        if a is None:
-            order.append(b)
-            shape.append(y.shape[b])
-        else:
-            k = keep.index(a)
-            order += [k, b]
-            shape.append(y.shape[k] * y.shape[b])
-    return y.permute(*order).reshape(shape)
+        n = y.shape[b]
+        for a in _names(e):
+            order.append(keep.index(a))
+            n *= y.shape[keep.index(a)]
+        order.append(b)
+        shape.append(n)
+    return y.permute(order).reshape(shape)
 
 
 def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs: Sequence[P],
@@ -201,6 +261,7 @@ def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs: Sequence[P],
         if len(args) != len(in_specs):
             raise TypeError(f"body takes {len(in_specs)} sharded arguments, "
                             f"got {len(args)}")
+        count("shard_map")
         stacked = [split(x.to(mesh.device), s, mesh)
                    for x, s in zip(args, in_specs)]
         with _active(mesh):
@@ -236,6 +297,12 @@ def _block_dim(x: torch.Tensor, mesh: Mesh, dim: int) -> int:
     return mesh.ndim + dim if dim >= 0 else x.ndim + dim
 
 
+def _axes(axis: str | Sequence[str]) -> list[int]:
+    """Mesh dims of one axis name or a tuple of them."""
+    mesh = _mesh()
+    return [mesh.axis(a) for a in ((axis,) if isinstance(axis, str) else axis)]
+
+
 def axis_index(axis: str) -> torch.Tensor:
     """Each rank's coordinate along ``axis``, shaped to broadcast over the
     mesh dims (size 1 on every other axis). Combine it with the stacked
@@ -261,6 +328,7 @@ def ppermute(x: torch.Tensor, axis: str,
              perm: Sequence[tuple[int, int]]) -> torch.Tensor:
     """Rank ``src`` sends its block to ``dst`` along ``axis`` for every
     ``(src, dst)`` pair; a rank that receives nothing gets zeros."""
+    count("ppermute")
     mesh = _mesh()
     a = mesh.axis(axis)
     n = mesh.shape[a]
@@ -281,10 +349,19 @@ def ppermute(x: torch.Tensor, axis: str,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
-    """Sum over the ranks along ``axis``; every rank holds the total."""
-    a = _mesh().axis(axis)
-    return x.sum(dim=a, keepdim=True).expand(x.shape)
+def psum(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
+    """Sum over the ranks along ``axis`` (a name or a tuple of names);
+    every rank holds the total."""
+    count("psum")
+    dims = _axes(axis)
+    return x.sum(dim=dims, keepdim=True).expand(x.shape)
+
+
+def pmax(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
+    """Largest value over the ranks along ``axis``; every rank holds it."""
+    count("pmax")
+    dims = _axes(axis)
+    return x.amax(dim=dims, keepdim=True).expand(x.shape)
 
 
 def all_gather(x: torch.Tensor, axis: str, *, dim: int = 0,
@@ -293,6 +370,7 @@ def all_gather(x: torch.Tensor, axis: str, *, dim: int = 0,
     along ``axis`` holds the result."""
     if not tiled:
         raise NotImplementedError("only tiled all_gather is supported")
+    count("all_gather")
     mesh = _mesh()
     a = mesh.axis(axis)
     d = _block_dim(x, mesh, dim)
@@ -310,6 +388,7 @@ def psum_scatter(x: torch.Tensor, axis: str, scatter_dimension: int = 0,
     of ``axis_size`` equal chunks of block dim ``scatter_dimension``."""
     if not tiled:
         raise NotImplementedError("only tiled psum_scatter is supported")
+    count("psum_scatter")
     mesh = _mesh()
     a = mesh.axis(axis)
     d = _block_dim(x, mesh, scatter_dimension)
@@ -322,3 +401,29 @@ def psum_scatter(x: torch.Tensor, axis: str, scatter_dimension: int = 0,
     shape = list(s.shape)
     shape[d - 1:d] = [g, n // g]
     return s.reshape(shape).movedim(d - 1, a)
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_axis: int, concat_axis: int,
+               *, tiled: bool = False) -> torch.Tensor:
+    """Rank ``i`` along ``axis`` sends the ``j``-th slice of block dim
+    ``split_axis`` (whose size is the axis size) to rank ``j``, which
+    stacks what it receives, by sender, on a new block dim at
+    ``concat_axis`` (JAX's ``tiled=False``: the split dim goes, the
+    sender dim comes). In the stacked form that is a swap of the mesh dim
+    with the split dim, then a move: a view, no copy."""
+    if tiled:
+        raise NotImplementedError("only all_to_all with tiled=False is "
+                                  "supported")
+    count("all_to_all")
+    mesh = _mesh()
+    a = mesh.axis(axis)
+    s = _block_dim(x, mesh, split_axis)
+    if x.shape[s] != mesh.shape[a]:
+        raise ValueError(f"split dim of size {x.shape[s]} is not the size "
+                         f"{mesh.shape[a]} of axis {axis!r}")
+    nblock = x.ndim - mesh.ndim
+    if not -nblock <= concat_axis < nblock:
+        raise IndexError(f"concat dim {concat_axis} out of range for "
+                         f"{nblock} block dims")
+    c = mesh.ndim + (concat_axis % nblock)
+    return x.transpose(a, s).movedim(s, c)

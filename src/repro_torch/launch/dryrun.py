@@ -31,8 +31,14 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
       --shape prefill_32k --batch 1
 
-``--mesh``, ``--mode`` and ``--no-seq-shard`` name a mesh of many cards;
-they are refused until the multi-card slice.
+A cell runs under ``steps.mesh_settings`` with no mesh, as one card is.
+``--mesh``, ``--mode`` and ``--no-seq-shard`` name the reference's
+production meshes of 256 and 512 chips. They are refused: the port's
+mesh layer runs on virtual ranks (``core/spmd.py``, ``launch/mesh.py``,
+``launch/policy.py``), but per-device FLOPs and HBM from a
+``ShardingPlan`` and collective bytes are not counted yet, and the
+gathers and reductions that XLA's partitioner inserts have no
+counterpart on one process.
 """
 from __future__ import annotations
 
@@ -123,7 +129,7 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda", batch: int | N
     the mesh and the run's seconds in place of ``compile_s``). ``cfg``
     replaces ``arch``'s published config (a test's reduced one)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import flops, roofline
+    from repro_torch.launch import flops, roofline, steps
     from repro_torch.launch import knobs as knobs_mod
     from repro_torch.launch.specs import runnable
     from repro_torch.models.config import SHAPES
@@ -147,7 +153,7 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda", batch: int | N
 
     t0 = time.time()
     try:
-        with knobs_mod.apply(knobs):
+        with knobs_mod.apply(knobs), steps.mesh_settings(cfg, shape):
             costs = flops.count_cell(cfg, shape)
             rt = roofline.terms(
                 arch, shape, cfg, MESH, 1,
@@ -234,16 +240,17 @@ def main(argv=None) -> int:
                          "shard_map SP attention, no microbatching)")
     ap.add_argument("--out", default=None, help="JSON output path")
     for flag in ("--mesh", "--mode"):
-        ap.add_argument(flag, default=None, help="refused: names a mesh of many cards")
+        ap.add_argument(flag, default=None, help="refused: names a production mesh")
     ap.add_argument("--no-seq-shard", action="store_true",
-                    help="refused: names a mesh of many cards")
+                    help="refused: names a production mesh")
     args = ap.parse_args(argv)
     for flag, value in (("--mesh", args.mesh), ("--mode", args.mode),
                         ("--no-seq-shard", args.no_seq_shard)):
         if value:
-            print(f"ERROR: {flag} names a sharding over a mesh of many cards; the "
-                  f"port runs on one card, and meshes come with the multi-card "
-                  f"slice", file=sys.stderr)
+            print(f"ERROR: {flag} names the reference's production mesh; the "
+                  f"port's dry run counts one card: per-device FLOPs and HBM "
+                  f"from a ShardingPlan and collective bytes are not counted "
+                  f"yet", file=sys.stderr)
             return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("ERROR: --device cuda (the default) needs an NVIDIA GPU, and torch "

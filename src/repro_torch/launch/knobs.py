@@ -12,11 +12,14 @@ same process can A/B a lever:
   sp_attention      — shard_map sequence-parallel attention (vs letting the
                       SPMD partitioner reshard the chunk loop)
 
-The port's copy of ``repro.launch.knobs``. On one card ``bf16_gather``
-and ``sp_attention`` name nothing yet (they act on the mesh), and
-``attn_chunks`` reaches no call: ``chunked_attention`` binds
-``Q_CHUNK``/``KV_CHUNK`` as defaults when it is defined, in both
-packages, so only the reference's sequence-parallel call reads them.
+The port's copy of ``repro.launch.knobs``. ``bf16_gather`` acts in both
+packages with or without a mesh: ``models/sharding.layer_barrier`` casts
+each layer's fp32 weights of two or more dims to bf16 at layer entry in
+the forward loops. ``sp_attention`` gates ``layers.sp_attention`` and
+``sp_decode_attention`` under a mesh in scope. ``attn_chunks`` sets
+``Q_CHUNK``/``KV_CHUNK``, which only ``sp_attention`` reads at its call
+(``chunked_attention`` binds them as defaults when it is defined, in
+both packages).
 """
 from __future__ import annotations
 

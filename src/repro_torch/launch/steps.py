@@ -2,17 +2,21 @@
 prefill and decode branches).
 
 The reference builds a lowering cell per (arch x shape): a step callable
-plus abstract arguments and shardings for XLA. On one card the step
-callables are what is left: the abstract arguments are
-``launch/specs.py``'s meta tensors, and the dry run
-(``launch/dryrun.py``) counts a step on them in place of lowering it;
-sharding plans wait for the multi-card slice. The train step keeps the
+plus abstract arguments and shardings for XLA. Here the step callables
+are what is left: the abstract arguments are ``launch/specs.py``'s meta
+tensors, and the dry run (``launch/dryrun.py``) counts a step on them in
+place of lowering it. ``mesh_settings`` is ``make_cell``'s setting of the
+model's mesh switches (sequence sharding, the layer barrier, the MoE
+groups) for one cell; the shardings themselves are ``launch/policy.py``'s
+plan. The train step keeps the
 reference's gradient accumulation, with the accumulation factor from
 ``choose_microbatches``; its loop over microbatches goes through
 ``models/loops.py``, so the count takes one microbatch for all.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable
 
 import torch
@@ -22,6 +26,39 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.loop import TrainState, value_and_grad
+
+
+@contextlib.contextmanager
+def mesh_settings(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+    """The mesh settings of the reference's ``make_cell`` for one cell,
+    restored on exit: sequence sharding over 'model' for train and prefill
+    shapes whose length divides by 16, the layer barrier under FSDP, and
+    MoE dispatch groups = gcd(data shards, tokens per step). ``mesh`` is a
+    ``spmd.Mesh`` (None: one card, one data shard); it is put in scope
+    for the block. Yields the sharding mode, ``policy.choose_mode(cfg)``."""
+    from repro_torch.core import spmd
+    from repro_torch.launch.policy import choose_mode
+    from repro_torch.models import sharding as shd
+
+    saved = (shd.seq_axis(), shd._LAYER_BARRIER, shd.moe_groups())
+    mode = choose_mode(cfg)
+    shd.set_sequence_sharding(
+        "model" if (shape.kind in ("train", "prefill")
+                    and shape.seq_len % 16 == 0) else None)
+    shd.set_layer_barrier(mode == "fsdp")
+    dp_total = 1
+    for ax in ("pod", "data"):
+        if mesh is not None and ax in mesh.axis_names:
+            dp_total *= mesh.axis_size(ax)
+    tokens_per_step = shape.global_batch * (1 if shape.is_decode else shape.seq_len)
+    shd.set_moe_groups(math.gcd(dp_total, tokens_per_step))
+    try:
+        with spmd.use_mesh(mesh):
+            yield mode
+    finally:
+        shd.set_sequence_sharding(saved[0])
+        shd.set_layer_barrier(saved[1])
+        shd.set_moe_groups(saved[2])
 
 
 def choose_microbatches(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,

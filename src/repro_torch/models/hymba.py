@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.models import layers, loops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import layer_barrier
 from repro_torch.models.params import (
     ParamDef,
     Schema,
@@ -200,7 +201,8 @@ class HymbaLM(nn.Module):
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         for p in unstack(params["layers"]):
-            x = remat_apply(block_apply, remat, p, x, cfg, positions, use_kernel)
+            x = remat_apply(block_apply, remat, layer_barrier(p), x, cfg, positions,
+                            use_kernel)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
     def logits(self, params, tokens, *, use_kernel=False, remat=True):

@@ -8,21 +8,26 @@ routing metadata is O(N*K) and expert activations O(E*C*D), never a
 reference's 16-way model axis (qwen2-moe: 60) are padded with dummy
 experts that the router masks and never picks.
 
-With no mesh the reference always takes its dense path, and so does the
-port: ``moe_apply`` is the reference's ``_moe_dense``. The expert-parallel
-``_moe_shard_map`` (explicit all-to-alls) comes with the multi-card
-substrate. The expert products are plain batched matmuls, as the
-reference's einsums are: no Pallas kernel serves the MoE FFN.
+``moe_apply`` picks the reference's path: with a mesh in scope, sequence
+sharding on and the shapes dividing, the expert-parallel
+``_moe_shard_map`` (explicit all-to-alls over the model axis, on the
+virtual ranks of ``core/spmd.py``), else ``_moe_dense``. Both route
+through ``route`` and ``dispatch_slots``, the ranks being the groups of
+the expert-parallel path. The expert products are plain batched matmuls,
+as the reference's einsums are: no Pallas kernel serves the MoE FFN.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spmd
 from repro_torch.models import layers
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, normal_init
-from repro_torch.models.sharding import moe_groups
 
 CAPACITY_FACTOR = 1.25
 
@@ -98,8 +103,119 @@ def dispatch_slots(expert_idx: torch.Tensor, n_experts: int, C: int):
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (out, aux_loss), through the reference's dense path
-    (``_moe_dense``, which it takes with no mesh, as on one card).
+    """x: (B, S, D) -> (out, aux_loss). Dispatches to the explicit
+    shard_map EP path (train/prefill under a mesh with sequence sharding)
+    or the dense path (no mesh / decode)."""
+    mesh = shd._current_mesh()
+    if mesh is not None and shd.MODEL_AXIS in mesh.axis_names:
+        batch_axes, dp, ep = layers._mesh_dims(mesh)
+        B, S, _ = x.shape
+        if (
+            shd.seq_axis() == shd.MODEL_AXIS
+            and cfg.padded_experts % ep == 0
+            and B % dp == 0
+            and S % ep == 0
+        ):
+            return _moe_shard_map(params, x, cfg, mesh, batch_axes, ep, dp)
+    return _moe_dense(params, x, cfg)
+
+
+def _moe_shard_map(params, x, cfg: ModelConfig, mesh, batch_axes, ep, dp):
+    """Expert parallelism with explicit all_to_all collectives (the
+    DeepSpeed/GShard schedule): each rank routes its own (batch x seq)
+    token shard into per-expert send buckets with a local capacity
+    (``capacity(Nl, ...)``, not the dense path's ``dispatch_capacity``:
+    the two drop differently, and agree when neither drops),
+    all_to_all's the buckets to the expert owners along the model axis,
+    runs its local experts, and reverses the exchange.
+
+    The body sees every rank's block at once: ranks are the groups of
+    ``route`` and ``dispatch_slots``, and each expert product folds the
+    batch-axis ranks into its token dim, so the model-sharded weights are
+    read as they are, not copied for each replica."""
+    spmd.count("moe_shard_map")
+    E = cfg.padded_experts
+    K = cfg.topk
+    E_l = E // ep
+    nd = mesh.ndim
+    a = mesh.axis(shd.MODEL_AXIS)
+    others = [d for d in range(nd) if d != a]
+    all_axes = tuple(batch_axes) + (shd.MODEL_AXIS,)
+    n_dev = dp * ep
+    R = math.prod(mesh.shape)
+    # rank -> its model-axis block: index 0 along every other mesh dim
+    own = tuple(slice(None) if d == a else 0 for d in range(nd))
+
+    def body(x_l, router, wg, wu, wd):
+        *_, Bl, Sl, D = x_l.shape
+        Nl = Bl * Sl
+        dt = x_l.dtype
+        dev = x_l.device
+        stacked = lambda t: t.reshape(*mesh.shape, *t.shape[1:])
+        xg = x_l.reshape(R, Nl, D)                     # ranks as groups
+        logits, probs, gate_vals, expert_idx = route(
+            {"router": router[(0,) * nd]}, xg, cfg)
+        # ---- aux loss from psum-averaged stats (the z-loss stays local)
+        me = spmd.psum(stacked(probs.mean(dim=1)), all_axes) / n_dev
+        flat = expert_idx.reshape(R, Nl * K)
+        counts = torch.zeros((R, E), dtype=torch.float32, device=dev).scatter_add_(
+            1, flat, torch.ones(flat.shape, dtype=torch.float32, device=dev))
+        ce = spmd.psum(stacked(counts), all_axes) / (Nl * K * n_dev)
+        aux = cfg.n_experts * torch.sum(me * ce, dim=-1)
+        aux = aux + stacked(torch.mean(torch.logsumexp(logits, dim=-1) ** 2, dim=-1)) * 1e-4
+
+        # ---- local dispatch into per-expert send buckets
+        C = capacity(Nl, cfg.n_experts, K)
+        pos_in_e, keep = dispatch_slots(expert_idx, E, C)
+        tok_flat = (torch.arange(Nl * K, device=dev) // K).expand(R, Nl * K)
+        r_idx = torch.arange(R, device=dev)[:, None].expand(R, Nl * K)
+        w = (gate_vals.reshape(R, Nl * K) * keep).to(dt)
+        safe_pos = torch.where(keep, pos_in_e, C - 1)
+        contrib = torch.where(keep[..., None], xg[r_idx, tok_flat],
+                              torch.zeros((), dtype=dt, device=dev))
+        send = torch.zeros((R, E, C, D), dtype=dt, device=dev)
+        send.index_put_((r_idx, flat, safe_pos), contrib, accumulate=True)
+
+        # ---- EP all_to_all: (ep, E_l, C, D) -> (ep senders, E_l, C, D)
+        recv = spmd.all_to_all(send.reshape(*mesh.shape, ep, E_l, C, D),
+                               shd.MODEL_AXIS, split_axis=0, concat_axis=0)
+        # Each expert owner's tokens, the other ranks' folded in:
+        # (*mesh, ep_s, E_l, C, D) -> (ep, E_l, others * ep_s * C, D)
+        h = recv.permute(a, nd + 1, *others, nd, nd + 2, nd + 3).reshape(ep, E_l, -1, D)
+        del send, recv
+
+        # ---- local expert FFN, on each owner's (E_l, D, F) weights
+        g = torch.matmul(h, wg[own].to(dt))
+        u = torch.matmul(h, wu[own].to(dt))
+        y = torch.matmul(F.silu(g) * u, wd[own].to(dt))
+        del h, g, u
+
+        # ---- reverse exchange: back to (*mesh, ep_s, E_l, C, D)
+        y = y.reshape(ep, E_l, *[mesh.shape[d] for d in others], ep, C, D)
+        back = [0 if d == a else 2 + others.index(d) for d in range(nd)]
+        y = y.permute(*back, nd + 1, 1, nd + 2, nd + 3)
+        y_back = spmd.all_to_all(y, shd.MODEL_AXIS, split_axis=0, concat_axis=0)
+        y_back = y_back.reshape(R, E, C, D)
+
+        # ---- combine
+        gathered = y_back[r_idx, flat, safe_pos] * w[..., None]
+        out = torch.zeros((R, Nl, D), dtype=dt, device=dev)
+        out.index_put_((r_idx, tok_flat), gathered, accumulate=True)
+        return out.reshape(*mesh.shape, Bl, Sl, D), aux
+
+    x_spec = spmd.P(batch_axes if batch_axes else None, shd.MODEL_AXIS, None)
+    w_spec = spmd.P(shd.MODEL_AXIS, None, None)
+    out, aux = spmd.shard_map(
+        body, mesh, (x_spec, spmd.P(None, None), w_spec, w_spec, w_spec),
+        (x_spec, spmd.P()),
+    )(x, params["router"], params["w_gate"], params["w_up"], params["w_down"])
+    if cfg.n_shared_experts:
+        out = out + layers.swiglu(params["shared"], x)
+    return out, aux
+
+
+def _moe_dense(params, x: torch.Tensor, cfg: ModelConfig):
+    """The dense path (no mesh, or decode steps with few tokens).
 
     Group-local dispatch: tokens are routed within G = ``moe_groups()``
     groups (1 unless set; 1 when G does not divide the tokens). Every
@@ -109,7 +225,7 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
     E = cfg.padded_experts
     K = cfg.topk
     N = B * S
-    G = moe_groups()
+    G = shd.moe_groups()
     if N % G != 0:
         G = 1
     Ng = N // G

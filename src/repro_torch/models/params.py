@@ -10,8 +10,9 @@ same tree as empty meta tensors) and ``param_count``.
 key for key (as numpy arrays), so the port and the reference can be run
 on the same weights. ``tree_leaves`` and ``tree_map`` walk a nested dict of
 tensors in ``jax.tree_util``'s leaf order (keys sorted), for the optimizer
-and the checkpoints. ``param_specs`` and ``ShardingRules`` come with the
-multi-card substrate.
+and the checkpoints. ``ShardingRules`` maps a leaf's logical axes onto mesh axes
+(``param_specs``, and ``opt_specs`` for the optimizer moments) as the
+port's partition specs (``core/spmd.P``), the reference's rules verbatim.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.core.spmd import P
 
 # (generator, shape, dtype, device) -> tensor
 Initializer = Callable[[torch.Generator, tuple, torch.dtype, Any], torch.Tensor]
@@ -122,6 +125,94 @@ def param_count(schema: Schema) -> int:
 
     _walk(schema, add)
     return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Policy mapping logical parameter axes to mesh axes.
+
+    ``mode``:
+      * "tp"    — Megatron tensor parallelism: fused head / ffn / vocab /
+                  expert dims shard over ``model_axis``; requires
+                  divisibility (checked per-leaf, falls back to replicate).
+      * "fsdp"  — ZeRO-3 style: the first shardable dim of every weight
+                  shards over ``model_axis``; the mesh gathers it per layer.
+    Optionally ``fsdp_data``: additionally shard the first remaining dim
+    over the data axis (2D "HSDP" sharding, a hillclimb lever).
+    """
+
+    mode: str = "tp"
+    model_axis: str = "model"
+    data_axis: str | tuple[str, ...] = "data"
+    model_size: int = 16
+    tp_axes: tuple[str, ...] = (
+        "q_fused", "kv_fused", "o_fused", "ffn", "vocab", "experts", "heads",
+    )
+    fsdp_data: bool = False
+    data_size: int = 16
+
+    def spec_for(self, d: ParamDef) -> P:
+        if self.mode == "tp":
+            entries: list[Any] = []
+            used_model = False
+            for size, ax in zip(d.shape, d.axes):
+                if (
+                    not used_model
+                    and ax in self.tp_axes
+                    and size % self.model_size == 0
+                ):
+                    entries.append(self.model_axis)
+                    used_model = True
+                else:
+                    entries.append(None)
+            if not used_model:
+                # Fall back to sharding 'embed' dims (row-parallel) if legal.
+                for i, (size, ax) in enumerate(zip(d.shape, d.axes)):
+                    if ax == "embed" and size % self.model_size == 0:
+                        entries[i] = self.model_axis
+                        break
+            return P(*entries)
+        if self.mode == "fsdp":
+            entries = [None] * len(d.shape)
+            placed_model = False
+            for i, (size, ax) in enumerate(zip(d.shape, d.axes)):
+                if ax == "layers":
+                    continue  # never shard the scan axis
+                if not placed_model and size % self.model_size == 0:
+                    entries[i] = self.model_axis
+                    placed_model = True
+                elif (
+                    self.fsdp_data
+                    and placed_model
+                    and entries[i] is None
+                    and size % self.data_size == 0
+                ):
+                    entries[i] = self.data_axis
+                    break
+            return P(*entries)
+        raise ValueError(f"unknown sharding mode {self.mode!r}")
+
+
+def param_specs(schema: Schema, rules: ShardingRules) -> dict:
+    return _walk(schema, lambda d, p: rules.spec_for(d))
+
+
+def opt_spec_for(d: ParamDef, rules: ShardingRules) -> P:
+    """ZeRO-1: optimizer moments take the param sharding PLUS the data axis
+    on the first still-unsharded dim that divides it (elementwise states
+    admit any even sharding; the re-gather rides the param update)."""
+    base = list(rules.spec_for(d))
+    while len(base) < len(d.shape):
+        base.append(None)
+    for i, (size, ax) in enumerate(zip(d.shape, d.axes)):
+        if base[i] is None and ax != "layers" and size % rules.data_size == 0:
+            base[i] = rules.data_axis
+            break
+    return P(*base)
+
+
+def opt_specs(schema: Schema, rules: ShardingRules) -> dict:
+    return _walk(schema, lambda d, p: opt_spec_for(d, rules))
 
 
 def params_from_numpy(tree, device="cuda") -> dict:

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import layer_barrier
 from repro_torch.models.params import (
     ParamDef,
     Schema,
@@ -273,8 +274,8 @@ class DecoderLM(nn.Module):
         aux_total = 0.0
         for key, _, _ in _stacks(cfg):
             for p in unstack(params[key]):
-                x, aux = remat_apply(block_apply, remat, p, x, cfg, positions,
-                                     use_kernel)
+                x, aux = remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
+                                     positions, use_kernel)
                 aux_total = aux_total + aux
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux_total

@@ -6,7 +6,8 @@ cast to fp32, leaves in ``jax.tree_util``'s order. The reference's jit
 donates the train state (``repro.launch.steps``), so ``update`` writes
 the parameters and the moments in place, under ``torch.no_grad()``, and
 returns them as the reference returns its new ones. The ZeRO-1 sharding
-of the moments comes with the multi-card substrate.
+of the moments is ``launch/policy.ShardingPlan.opt_moments``' spec; one
+process keeps the moments whole.
 
 Gradient compression (int8 error-feedback) is applied by the train step
 before it calls ``update``; see ``repro_torch/runtime/compression.py``.

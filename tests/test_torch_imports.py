@@ -31,8 +31,8 @@ print("imported", len(names))
 """
 
 # The LM serving stack (MoE and MLA included), the tuner's service and
-# fault layers, the training path and the dry run: every module must be
-# among those imported.
+# fault layers, the training path, the dry run and the mesh layer: every
+# module must be among those imported.
 LM_MODULES = [
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b",
     "repro_torch.models", "repro_torch.models.config",
@@ -56,6 +56,8 @@ LM_MODULES = [
     "repro_torch.launch.train",
     "repro_torch.models.loops", "repro_torch.launch.knobs", "repro_torch.launch.specs",
     "repro_torch.launch.roofline", "repro_torch.launch.flops", "repro_torch.launch.dryrun",
+    "repro_torch.launch.mesh", "repro_torch.launch.policy", "repro_torch.training.pipeline",
+    "repro_torch.core.spmd",
 ]
 
 
@@ -68,4 +70,4 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 69, proc.stdout
+    assert count >= 72, proc.stdout
