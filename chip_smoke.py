@@ -155,7 +155,18 @@ NVIDIA H100:
    path's wall with and without
    the mesh, the call counts and peak memory; the phase must end within
    150 s;
-17. drives the training path (no kernel: the plain path, as the reference
+17. drives the dry run's production meshes (``run_mesh_cell``): smollm-135m
+   train_4k and qwen2-moe-a2.7b prefill_32k on the 256-chip single mesh,
+   each counted on the meta device on a fake process group of 256 ranks
+   (rank (0, 0)'s per-device FLOPs and collective bytes by kind), then
+   rank (0, 0)'s share run once on the card under that group, counters
+   set to 0 just before and read just after (no launch: the plain route,
+   as the reference's cells); fails unless every local block lies on the
+   card, the arguments there equal the meta count's argument bytes, and
+   the peak memory is at least the arguments and under 80 GB; prints the
+   reference's figures beside the port's; the phase must end within
+   120 s;
+18. drives the training path (no kernel: the plain path, as the reference
    trains): the loop's train step on the card against the same step on
    the CPU on reduced fp32 smollm-135m (three steps, each from the CPU's
    state: losses within 1e-4, new parameters within 1e-4 wherever the
@@ -172,7 +183,7 @@ NVIDIA H100:
    within 1e-6 of an uninterrupted run's; ``use_kernel=True`` under
    autograd raising for flash, mamba_scan and wkv6 with no launch; one
    step each of hymba-1.5b and rwkv6-3b at full width and 2 layers;
-18. prints one JSON ``kernels`` line (matmul and stencil launches from the
+19. prints one JSON ``kernels`` line (matmul and stencil launches from the
    execute path, the bf16 matmul row's by app from the bf16 pass,
    segment_rowmax launches from the tune path and, by path,
    from phases 5-8, flash_attention launches summed over the hymba,
@@ -425,6 +436,20 @@ MESH_MOE_CAPACITY = 16.0
 MESH_MOE_LAYERS = 16
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 2, 4, 1024
 MESH_BUDGET_S = 150.0
+# The production-mesh phase: cells of the dry run's 256-chip single mesh,
+# with the reference's compiled figures for them (python -m
+# repro.launch.dryrun --mesh single, jax 0.9.0 on 256 fake CPU devices:
+# compile-time numbers, no time on any chip) printed beside the port's.
+PROD_CELLS = (("smollm-135m", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"))
+PROD_REFERENCE = {
+    "smollm-135m": {"flops": 8.596e12, "argument": 38373108, "temp": 3.809e9,
+                    "collectives": {"all-gather": 1.164e10, "all-reduce": 1.022e10,
+                                    "all-to-all": 8.49e8, "reduce-scatter": 1.89e8}},
+    "qwen2-moe-a2.7b": {"flops": 4.566e13, "argument": 3786994176, "temp": 2.79e9,
+                        "collectives": {"all-gather": 3.16e10, "all-reduce": 1.29e10,
+                                        "all-to-all": 9.46e9}},
+}
+PROD_BUDGET_S = 120.0
 # The launcher's restart run, and one step of the other families at their
 # published widths and 2 layers (their plain recurrences loop over time).
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps", "12", "--batch", "8",
@@ -2791,6 +2816,57 @@ def mesh_phase(smi: str) -> int:
     return flash
 
 
+def production_mesh_phase(smi: str) -> None:
+    """The dry run's production meshes: each PROD_CELLS cell counted on a
+    fake group of 256 ranks, then rank (0, 0)'s share once on the card."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, knobs
+
+    t0 = time.perf_counter()
+    for arch, shape in PROD_CELLS:
+        ops.reset_launch_counts()
+        rec = dryrun.run_mesh_cell(arch, shape, "single", device="cuda",
+                                   knobs=knobs.Knobs(wkv_impl="chunked"), verbose=False)
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        torch.cuda.empty_cache()
+        if rec["status"] != "ok":
+            fail(f"production mesh {arch} x {shape}: {rec.get('error')}\n"
+                 f"{rec.get('traceback', '')}")
+        if launched:
+            fail(f"production mesh {arch} x {shape}: kernels launched {launched}; the "
+                 f"cells run the plain route")
+        r0, mem = rec["rank0"], rec["memory_analysis"]
+        if r0["local_devices"] != ["cuda:0"] or r0["output_devices"] != ["cuda:0"]:
+            fail(f"production mesh {arch} x {shape}: rank 0's blocks on "
+                 f"{r0['local_devices']}, outputs on {r0['output_devices']}")
+        if r0["argument_bytes"] != mem["argument_size_in_bytes"]:
+            fail(f"production mesh {arch} x {shape}: {r0['argument_bytes']} argument bytes "
+                 f"on the card, {mem['argument_size_in_bytes']} in the meta count")
+        peak = r0["peak_memory_bytes"]
+        if not r0["argument_bytes"] <= peak < 80e9:
+            fail(f"production mesh {arch} x {shape}: peak {peak} bytes against arguments "
+                 f"{r0['argument_bytes']}")
+        ref = PROD_REFERENCE[arch]
+        coll = rec["collectives"]["bytes"]
+        print(f"production mesh {arch} x {shape} single (256 ranks, {rec['sharding_mode']}, "
+              f"rank 0 on {smi}): per-device flops {rec['flops']:.4e} (reference "
+              f"{ref['flops']:.4e}, x{rec['flops'] / ref['flops']:.3f}); argument bytes "
+              f"{mem['argument_size_in_bytes']} (reference {ref['argument']}); temp bytes "
+              f"{mem['temp_size_in_bytes']:.4e} = peak {peak:.4e} less the arguments "
+              f"(reference {ref['temp']:.4e}); rank 0's step {r0['step_s']:.3f} s on the "
+              f"card, count {rec['count_s']:.1f} s on the host; no kernel launched")
+        for kind in sorted(set(coll) | set(ref["collectives"])):
+            mine, want = coll.get(kind, 0.0), ref["collectives"].get(kind, 0.0)
+            print(f"  collective {kind:18s} {mine:.4e} bytes (reference {want:.4e}"
+                  + (f", x{mine / want:.3f})" if want else ")"))
+    wall = time.perf_counter() - t0
+    print(f"production mesh phase: {wall:.1f} s (budget {PROD_BUDGET_S} s)")
+    if wall > PROD_BUDGET_S:
+        fail(f"production mesh phase took {wall:.1f} s, beyond {PROD_BUDGET_S} s")
+
+
 def train_phase(smi: str) -> None:
     """The training path: card against CPU, the full-width smollm-135m run
     (with the accumulation check), the launcher's restart, the kernel
@@ -2882,6 +2958,8 @@ def main() -> int:
     dry, dry_err = dryrun_phase()
     flash_paths["dryrun"] = dry["flash_attention"]
     flash_paths["mesh"] = mesh_phase(smi)
+    torch.cuda.empty_cache()
+    production_mesh_phase(smi)
     counts["flash_attention"] = sum(flash_paths.values())
     rows["flash_attention"]["launches_by_path"] = flash_paths
     for name, arch in (("mamba_scan", LM_ARCH), ("wkv6", RWKV_ARCH)):

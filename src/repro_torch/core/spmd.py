@@ -28,6 +28,19 @@ The mesh records which virtual device id sits at each mesh coordinate
 mapper's decision. Numerics never depend on it, exactly as a JAX mesh's
 device order does not change what a shard_map program computes;
 :func:`placement` reads it back as ``{virtual device id: block}``.
+
+*The process-group backend.* A mesh that carries a
+``torch.distributed.device_mesh.DeviceMesh`` of its shape (``Mesh.dist``,
+built by ``core/world.py``; its ranks are mesh positions) runs one rank
+per process, or rank (0, ..., 0) alone on a fake group. There a body sees
+THIS rank's block only, with no leading mesh dims (:func:`lead_dims` is
+0): :func:`shard_map` takes each DTensor argument's local block (after a
+redistribution if its placements differ from the spec), runs the body
+once, and wraps the outputs back into DTensors at ``out_specs``; the
+collectives are ``torch.distributed._functional_collectives`` over
+``(device_mesh, mesh dim)``, each with its dual in the backward.
+Bodies address block dims from the right (or block-relative, as JAX
+does), so one body serves both backends.
 """
 from __future__ import annotations
 
@@ -43,11 +56,18 @@ import torch
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """Virtual device ids laid out on named axes, on one torch device."""
+    """Virtual device ids laid out on named axes, on one torch device.
+
+    ``dist``: a ``DeviceMesh`` of the same shape (``core/world.py``), or
+    None for virtual ranks; ``device`` is then where this rank's blocks
+    live. ``fold``: consecutive axes that are one dim of ``dist`` (major
+    first), which a spec or a collective names only all together."""
 
     device_ids: np.ndarray                 # int, shape == tile grid
     axis_names: tuple[str, ...]
     device: torch.device
+    dist: Any = None
+    fold: tuple[str, ...] = ()
 
     def __post_init__(self) -> None:
         ids = np.asarray(self.device_ids, dtype=np.int64)
@@ -61,6 +81,12 @@ class Mesh:
         object.__setattr__(self, "device_ids", ids)
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
         object.__setattr__(self, "device", torch.device(self.device))
+        fold = tuple(self.fold)
+        if fold and (len(fold) < 2 or not all(
+                self.axis(b) == self.axis(a) + 1 for a, b in zip(fold, fold[1:]))):
+            raise ValueError(f"fold {fold} is not two or more consecutive axes of "
+                             f"{self.axis_names}")
+        object.__setattr__(self, "fold", fold)
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -81,6 +107,26 @@ class Mesh:
 
     def axis_size(self, name: str) -> int:
         return self.shape[self.axis(name)]
+
+    def dist_axes(self) -> list[tuple[str, ...]]:
+        """The mesh axes of each ``dist`` dim, in order."""
+        return [self.fold if a in self.fold else (a,) for a in self.axis_names
+                if a not in self.fold[1:]]
+
+    def dist_dims(self, axes: str | Sequence[str]) -> list[int]:
+        """The ``dist`` dims of an axis name or a tuple of them; the folded
+        axes count only all together."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in names:
+            self.axis(a)
+        out = []
+        for i, group in enumerate(self.dist_axes()):
+            hit = tuple(a for a in names if a in group)
+            if hit and hit != group:
+                raise ValueError(f"axes {names} name part of the folded axes {group}")
+            if hit:
+                out.append(i)
+        return out
 
 
 class P(tuple):
@@ -129,24 +175,27 @@ def reset_counts() -> None:
     _COUNTS.clear()
 
 
-_SCOPE: contextvars.ContextVar[Mesh | None] = contextvars.ContextVar(
-    "spmd_scope", default=None)
+# The mesh in scope. A module global, as the launcher's other switches
+# (models/sharding.py) are: autograd runs a CUDA backward, and with it a
+# remat recompute, on a thread of its own, which a context variable set
+# on the caller's thread would not reach.
+_SCOPE: list[Mesh | None] = [None]
 
 
 @contextlib.contextmanager
 def use_mesh(mesh: Mesh | None):
     """Put ``mesh`` in scope (None: no mesh) for the block: the reference's
     ``with mesh:``. The model code reads it through :func:`current_mesh`."""
-    token = _SCOPE.set(mesh)
+    _SCOPE.append(mesh)
     try:
         yield mesh
     finally:
-        _SCOPE.reset(token)
+        _SCOPE.pop()
 
 
 def current_mesh() -> Mesh | None:
     """The mesh in scope, or None."""
-    return _SCOPE.get()
+    return _SCOPE[-1]
 
 
 _MESH: contextvars.ContextVar[Mesh | None] = contextvars.ContextVar(
@@ -262,6 +311,8 @@ def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs: Sequence[P],
             raise TypeError(f"body takes {len(in_specs)} sharded arguments, "
                             f"got {len(args)}")
         count("shard_map")
+        if mesh.dist is not None:
+            return _shard_map_pg(body, mesh, in_specs, out_specs, args)
         stacked = [split(x.to(mesh.device), s, mesh)
                    for x, s in zip(args, in_specs)]
         with _active(mesh):
@@ -274,6 +325,81 @@ def shard_map(body: Callable[..., Any], mesh: Mesh, in_specs: Sequence[P],
         return type(out)(assemble(o, s, mesh) for o, s in zip(out, out_specs))
 
     return fn
+
+
+def placements(spec: Sequence, mesh: Mesh, ndim: int) -> list:
+    """DTensor placements of a spec on ``mesh.dist``: ``Shard(d)`` on each
+    mesh dim that tensor dim ``d`` splits over (several, major first, as
+    JAX splits; the folded axes are one), ``Replicate()`` on every mesh
+    dim the spec does not name."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    spec = _spec_for(spec, ndim, mesh)
+    out: list = [Replicate()] * len(mesh.dist_axes())
+    for d, e in enumerate(spec):
+        dims = [mesh.axis(a) for a in _names(e)]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {e!r} must name its mesh axes in the "
+                             f"mesh's order {mesh.axis_names} (major first)")
+        for m in mesh.dist_dims(_names(e)):
+            out[m] = Shard(d)
+    return out
+
+
+def local_block(x: torch.Tensor, spec: Sequence, mesh: Mesh, *,
+                even: bool = True) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` on the process-group
+    backend: a DTensor is redistributed to the spec's placements (if they
+    differ) and its local tensor taken; a plain tensor is the same global
+    value on every rank, and its block is cut locally. With ``even`` it
+    raises if a dim does not split evenly, as :func:`split` does; without,
+    blocks are ``torch.chunk``'s, the first the largest."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    spec = _spec_for(spec, x.ndim, mesh)
+    for d, e in enumerate(spec):
+        g = int(np.prod([mesh.axis_size(a) for a in _names(e)], dtype=np.int64))
+        if even and x.shape[d] % g:
+            raise ValueError(f"dim {d} of size {x.shape[d]} does not split evenly "
+                             f"over mesh axes {_names(e)} of size {g}")
+    want = placements(spec, mesh, x.ndim)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x.to(mesh.device), mesh.dist,
+                               [Replicate()] * len(mesh.dist_axes()), run_check=False)
+    if tuple(x.placements) != tuple(want):
+        x = x.redistribute(mesh.dist, want)
+    return x.to_local()
+
+
+def _shard_map_pg(body, mesh: Mesh, in_specs, out_specs, args):
+    from torch.distributed.tensor import DTensor
+
+    blocks = [local_block(x, s, mesh) for x, s in zip(args, in_specs)]
+    with _active(mesh):
+        out = body(*blocks)
+
+    def wrap(o, spec):
+        named = {a for e in _spec_for(spec, o.ndim, mesh) for a in _names(e)}
+        replica = any(mesh.dist.get_local_rank(i)
+                      for i, group in enumerate(mesh.dist_axes()) if not named & set(group))
+        if replica and o.requires_grad:
+            o = _OriginGrad.apply(o)
+        return DTensor.from_local(o, mesh.dist, placements(spec, mesh, o.ndim),
+                                  run_check=False)
+
+    if isinstance(out_specs, P):
+        return wrap(out, out_specs)
+    if len(out) != len(out_specs):
+        raise ValueError(f"body returned {len(out)} outputs for "
+                         f"{len(out_specs)} out_specs")
+    return type(out)(wrap(o, s) for o, s in zip(out, out_specs))
+
+
+def lead_dims() -> int:
+    """How many leading mesh dims a block has in the running body: the
+    mesh's rank on virtual ranks, 0 on the process-group backend."""
+    mesh = _mesh()
+    return 0 if mesh.dist is not None else mesh.ndim
 
 
 def placement(mesh: Mesh, stacked: torch.Tensor) -> dict[int, torch.Tensor]:
@@ -308,6 +434,9 @@ def axis_index(axis: str) -> torch.Tensor:
     mesh dims (size 1 on every other axis). Combine it with the stacked
     blocks through :func:`where`."""
     mesh = _mesh()
+    if mesh.dist is not None:
+        (g,) = mesh.dist_dims(axis)
+        return torch.tensor(mesh.dist.get_local_rank(g), device=mesh.device)
     a = mesh.axis(axis)
     shape = [1] * mesh.ndim
     shape[a] = mesh.shape[a]
@@ -338,6 +467,8 @@ def ppermute(x: torch.Tensor, axis: str,
             raise ValueError(f"invalid permutation {perm} for axis {axis!r} "
                              f"of size {n}")
         src_of[dst] = src
+    if mesh.dist is not None:
+        return _Permute.apply(x, (mesh.dist, *mesh.dist_dims(axis)), tuple(src_of))
     if -1 not in src_of:
         idx = torch.tensor(src_of, device=x.device)
         return x.index_select(a, idx)
@@ -354,6 +485,11 @@ def psum(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
     every rank holds the total."""
     count("psum")
     dims = _axes(axis)
+    mesh = _mesh()
+    if mesh.dist is not None:
+        for g in mesh.dist_dims(axis):
+            x = _AllReduce.apply(x, (mesh.dist, g))
+        return x
     return x.sum(dim=dims, keepdim=True).expand(x.shape)
 
 
@@ -361,6 +497,14 @@ def pmax(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
     """Largest value over the ranks along ``axis``; every rank holds it."""
     count("pmax")
     dims = _axes(axis)
+    mesh = _mesh()
+    if mesh.dist is not None:
+        if x.requires_grad:
+            raise NotImplementedError("pmax has no backward on the process-group "
+                                      "backend")
+        for g in mesh.dist_dims(axis):
+            x = _wait(_funcol().all_reduce(x.contiguous(), "max", (mesh.dist, g)))
+        return x
     return x.amax(dim=dims, keepdim=True).expand(x.shape)
 
 
@@ -373,6 +517,8 @@ def all_gather(x: torch.Tensor, axis: str, *, dim: int = 0,
     count("all_gather")
     mesh = _mesh()
     a = mesh.axis(axis)
+    if mesh.dist is not None:
+        return _AllGather.apply(x, (mesh.dist, *mesh.dist_dims(axis)), dim % x.ndim)
     d = _block_dim(x, mesh, dim)
     g = x.shape[a]
     y = x.movedim(a, d - 1)                # rank dim just before the block dim
@@ -391,6 +537,12 @@ def psum_scatter(x: torch.Tensor, axis: str, scatter_dimension: int = 0,
     count("psum_scatter")
     mesh = _mesh()
     a = mesh.axis(axis)
+    if mesh.dist is not None:
+        d = scatter_dimension % x.ndim
+        if x.shape[d] % mesh.shape[a]:
+            raise ValueError(f"block dim of size {x.shape[d]} does not scatter "
+                             f"evenly over {mesh.shape[a]} ranks")
+        return _ReduceScatter.apply(x, (mesh.dist, *mesh.dist_dims(axis)), d)
     d = _block_dim(x, mesh, scatter_dimension)
     g = x.shape[a]
     n = x.shape[d]
@@ -417,6 +569,16 @@ def all_to_all(x: torch.Tensor, axis: str, split_axis: int, concat_axis: int,
     count("all_to_all")
     mesh = _mesh()
     a = mesh.axis(axis)
+    if mesh.dist is not None:
+        s, nblock = split_axis % x.ndim, x.ndim
+        if x.shape[s] != mesh.shape[a]:
+            raise ValueError(f"split dim of size {x.shape[s]} is not the size "
+                             f"{mesh.shape[a]} of axis {axis!r}")
+        if not -nblock <= concat_axis < nblock:
+            raise IndexError(f"concat dim {concat_axis} out of range for "
+                             f"{nblock} block dims")
+        y = _AllToAll.apply(x.movedim(s, 0), (mesh.dist, *mesh.dist_dims(axis)))
+        return y.movedim(0, concat_axis % nblock)
     s = _block_dim(x, mesh, split_axis)
     if x.shape[s] != mesh.shape[a]:
         raise ValueError(f"split dim of size {x.shape[s]} is not the size "
@@ -427,3 +589,128 @@ def all_to_all(x: torch.Tensor, axis: str, split_axis: int, concat_axis: int,
                          f"{nblock} block dims")
     c = mesh.ndim + (concat_axis % nblock)
     return x.transpose(a, s).movedim(s, c)
+
+
+# ------------------------------------- collectives on the process groups
+# Each is a torch.autograd.Function whose backward is the collective's
+# dual, as the stacked form's indexing differentiates: a gather's
+# backward reduce-scatters, a sum's sums, an all-to-all and a permute
+# send the gradients back the way the values came.
+def _funcol():
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    funcol = _funcol()
+    if isinstance(t, funcol.AsyncCollectiveTensor):
+        return t.wait()
+    return funcol.wait_tensor(t)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    funcol = _funcol()
+    fn = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    return _wait(fn(x.contiguous(), dim, group))
+
+
+def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    funcol = _funcol()
+    fn = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
+    return _wait(fn(x.contiguous(), "sum", dim, group))
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    return _wait(_funcol().all_to_all_single(x.contiguous(), None, None, group))
+
+
+def _route(x: torch.Tensor, group, src_of: tuple[int, ...]) -> torch.Tensor:
+    """Rank ``src_of[r]`` sends its block to rank r along the group's mesh
+    dim (``funcol.permute_tensor``'s exchange, with a rank that is sent
+    nothing getting zeros)."""
+    mesh, dim = group
+    me = mesh.get_local_rank(dim)
+    n = x.numel()
+    send = [n if s == me else 0 for s in src_of]
+    recv = [0] * len(src_of)
+    if src_of[me] >= 0:
+        recv[src_of[me]] = n
+    flat = x.reshape(-1)[:sum(send)].contiguous()
+    y = _wait(_funcol().all_to_all_single(flat, recv, send, group))
+    return y.reshape(x.shape) if src_of[me] >= 0 else torch.zeros_like(x)
+
+
+class _OriginGrad(torch.autograd.Function):
+    """The identity, whose gradient is zero. An output replicated over an
+    axis its spec does not name is, as on virtual ranks (``assemble``),
+    the replica at coordinate 0; a DTensor gives the full gradient to
+    every replica, so the others' copies must not add theirs."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _wait(_funcol().all_reduce(x.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wait(_funcol().all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src_of):
+        ctx.group = group
+        inverse = [-1] * len(src_of)
+        for dst, src in enumerate(src_of):
+            if src >= 0:
+                inverse[src] = dst
+        ctx.inverse = tuple(inverse)
+        return _route(x, group, src_of)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _route(g, ctx.group, ctx.inverse), None, None

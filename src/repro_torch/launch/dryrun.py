@@ -32,13 +32,30 @@ Usage:
       --shape prefill_32k --batch 1
 
 A cell runs under ``steps.mesh_settings`` with no mesh, as one card is.
-``--mesh``, ``--mode`` and ``--no-seq-shard`` name the reference's
-production meshes of 256 and 512 chips. They are refused: the port's
-mesh layer runs on virtual ranks (``core/spmd.py``, ``launch/mesh.py``,
-``launch/policy.py``), but per-device FLOPs and HBM from a
-``ShardingPlan`` and collective bytes are not counted yet, and the
-gathers and reductions that XLA's partitioner inserts have no
-counterpart on one process.
+
+``--mesh single|multi|both`` counts the reference's production meshes
+instead: 256 chips as (data=16, model=16), 512 as (pod=2, data=16,
+model=16). Each cell's step runs on DTensors over a fake process group
+of that many ranks in this one process (``core/world.py``), placed by
+``launch/policy.py``'s ``ShardingPlan`` (``launch/steps.py::make_cell``),
+and the count (``Cell.count``) is rank (0, 0[, 0])'s: per-device FLOPs,
+unfused bytes, and collective bytes by the reference's five kinds, both
+those of the shard_map bodies and those DTensor inserts. ``--mode``
+overrides the sharding mode, ``--no-seq-shard`` turns sequence sharding
+off. On ``--device cuda`` rank 0's share then runs once on the card
+(``Cell.run``: seeded local blocks, the fake group moving no data) for
+its peak memory. The record keeps the reference's names:
+``memory_analysis`` (argument, output and aliased bytes of this rank's
+blocks; ``temp_size_in_bytes`` the card's peak less the arguments, null
+on meta), ``flops`` and ``bytes_accessed`` per device (unfused),
+``collective_bytes``, ``collectives`` and the roofline (the machine
+model's rates on meta, as the reference's; ``roofline.H100`` on the
+card), plus ``model_flops_share``, the reference's
+``useful_flops_ratio``. These cells launch no kernel, as the
+reference's do not (``use_pallas=False``).
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both \\
+      --device meta --out results/dryrun_mesh_torch.json
 """
 from __future__ import annotations
 
@@ -216,6 +233,116 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda", batch: int | N
     return record
 
 
+MESHES = {"single": ["single"], "multi": ["multi"], "both": ["single", "multi"]}
+MULTI_FOLD = ("pod", "data")
+
+
+def run_mesh_cell(arch: str, shape_name: str, mesh_name: str, *, device: str = "meta",
+                  mode: str | None = None, seq_shard: bool = True, knobs=None,
+                  verbose: bool = True, cfg=None) -> dict:
+    """One cell on a production mesh (the reference's ``run_cell``): the
+    count of rank (0, ...)'s share on a fake group, and on ``cuda`` that
+    share run once on the card. ``cfg`` replaces ``arch``'s published
+    config (a test's reduced one)."""
+    import logging
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import world
+    from repro_torch.launch import knobs as knobs_mod
+    from repro_torch.launch import flops, roofline, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import runnable
+    from repro_torch.models.config import SHAPES
+
+    if device not in ("meta", "cuda"):
+        raise ValueError(f"device {device!r}: the dry run counts on 'meta' and runs on 'cuda'")
+    if knobs is None:
+        knobs = knobs_mod.Knobs()
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = runnable(cfg, shape)
+    record: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "device": device,
+                    "status": "skipped" if not ok else "pending"}
+    if not ok:
+        record["reason"] = why
+        if verbose:
+            print(f"[skip] {arch} x {shape_name} x {mesh_name}: {why}")
+        return record
+    # DTensor warns at every reduction of a partial sum over two mesh dims.
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    base = make_production_mesh(multi_pod=mesh_name == "multi", device="meta")
+    # DTensor's sharding propagation on a 3-D mesh took 17 s a matmul (torch
+    # 2.13); every spec names 'pod' and 'data' together but ZeRO-1's
+    # moments, so the multi mesh's DeviceMesh folds them into one dim.
+    fold = MULTI_FOLD if mesh_name == "multi" else ()
+    n_chips = int(base.device_ids.size)
+    t0 = time.time()
+    try:
+        with world.world("fake", n_chips, rank=world.ORIGIN_RANK), knobs_mod.apply(knobs):
+            mesh = world.on_world(base, "meta", device_type="cuda", fold=fold)
+            cell = steps.make_cell(arch, cfg, shape, mesh, mode=mode, seq_shard=seq_shard)
+            costs = cell.count()
+            rank0 = cell.run("cuda") if device == "cuda" else None
+        rates = roofline.H100 if device == "cuda" else {}
+        rt = roofline.terms(arch, shape, cfg, mesh_name, n_chips,
+                            {"flops": costs.flops, "bytes accessed": costs.bytes_unfused},
+                            costs.collective_bytes, **rates)
+        temp = None
+        if rank0 is not None:
+            if rank0["local_devices"] != ["cuda:0"]:
+                raise RuntimeError(f"rank 0's blocks lie on {rank0['local_devices']}, "
+                                   f"not on the card")
+            temp = rank0["peak_memory_bytes"] - rank0["argument_bytes"]
+        record.update(
+            status="ok", n_chips=n_chips, global_batch=shape.global_batch,
+            count_s=costs.seconds,
+            memory_analysis={
+                "argument_size_in_bytes": int(costs.argument_bytes),
+                "output_size_in_bytes": int(costs.output_bytes),
+                "alias_size_in_bytes": int(costs.alias_bytes),
+                "temp_size_in_bytes": temp,
+            },
+            flops=rt.hlo_flops, bytes_accessed=rt.hlo_bytes,
+            bytes_accessed_is="per device, unfused (an upper bound)",
+            collective_bytes=costs.collective_bytes,
+            collectives={"bytes": costs.collective_by_kind,
+                         "counts": costs.collective_count_by_kind,
+                         "ops": flops.dominant_ops(costs, None)},
+            roofline={
+                "compute_s": rt.compute_s, "memory_s": rt.memory_s,
+                "memory_s_is": "upper bound (unfused bytes)",
+                "collective_s": rt.collective_s, "bottleneck": rt.bottleneck,
+                "model_flops": rt.model_flops, "useful_flops_ratio": rt.flops_ratio,
+                "rates": dict(rates) or "machine model (core/machine.py)",
+            },
+            model_flops_share=rt.flops_ratio,
+            sharding_mode=cell.plan.mode, seq_shard=seq_shard, fold=list(fold),
+            knobs=dataclasses.asdict(knobs),
+        )
+        if rank0 is not None:
+            record.update(card=torch.cuda.get_device_name(0), rank0=rank0)
+        record["run_s"] = time.time() - t0
+        if verbose:
+            print(f"[ok]   {arch} x {shape_name} x {mesh_name} ({record['run_s']:.1f}s, "
+                  f"mode={cell.plan.mode})")
+            print(f"       memory: {record['memory_analysis']}")
+            print(f"       cost: flops={rt.hlo_flops:.3e} bytes_unfused={rt.hlo_bytes:.3e} "
+                  f"coll={costs.collective_bytes / 2**20:.1f}MiB")
+            print(flops.CollectiveStats.of(costs).summary())
+            print(f"       roofline: compute={rt.compute_s:.3e}s memory<={rt.memory_s:.3e}s "
+                  f"coll={rt.collective_s:.3e}s -> {rt.bottleneck}-bound, "
+                  f"useful={rt.flops_ratio:.2f}")
+            if rank0 is not None:
+                print(f"       rank 0 on the card: {rank0['step_s']:.3f}s, peak "
+                      f"{rank0['peak_memory_bytes'] / 1e9:.2f} GB, temp {temp / 1e9:.2f} GB")
+    except Exception as e:  # noqa: BLE001 - report, continue the sweep
+        record.update(status="error", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-2000:])
+        if verbose:
+            print(f"[ERR]  {arch} x {shape_name} x {mesh_name}: {e}")
+    return record
+
+
 def main(argv=None) -> int:
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch.knobs import Knobs
@@ -239,19 +366,22 @@ def main(argv=None) -> int:
                     help="paper-faithful baseline knobs (scan WKV, no "
                          "shard_map SP attention, no microbatching)")
     ap.add_argument("--out", default=None, help="JSON output path")
-    for flag in ("--mesh", "--mode"):
-        ap.add_argument(flag, default=None, help="refused: names a production mesh")
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
+                    help="count the production meshes on a fake process group "
+                         "(unset: one card)")
+    ap.add_argument("--mode", default=None, choices=("tp", "fsdp"),
+                    help="override the sharding-policy mode (with --mesh)")
     ap.add_argument("--no-seq-shard", action="store_true",
-                    help="refused: names a production mesh")
+                    help="disable sequence-parallel residual sharding (with --mesh)")
     args = ap.parse_args(argv)
-    for flag, value in (("--mesh", args.mesh), ("--mode", args.mode),
-                        ("--no-seq-shard", args.no_seq_shard)):
-        if value:
-            print(f"ERROR: {flag} names the reference's production mesh; the "
-                  f"port's dry run counts one card: per-device FLOPs and HBM "
-                  f"from a ShardingPlan and collective bytes are not counted "
-                  f"yet", file=sys.stderr)
-            return 2
+    if args.mesh is None and (args.mode or args.no_seq_shard):
+        print("ERROR: --mode and --no-seq-shard set a production mesh's sharding; "
+              "pass --mesh single|multi|both", file=sys.stderr)
+        return 2
+    if args.mesh is not None and args.batch is not None:
+        print("ERROR: --batch sets the one-card run; a production mesh runs each "
+              "cell at its global batch", file=sys.stderr)
+        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("ERROR: --device cuda (the default) needs an NVIDIA GPU, and torch "
               "finds no CUDA card here; pass --device meta to count without one",
@@ -269,8 +399,14 @@ def main(argv=None) -> int:
     t0 = time.time()
     for arch in archs:
         for shape in shapes:
-            records.append(run_cell(arch, shape, device=args.device,
-                                    batch=args.batch, knobs=knobs))
+            if args.mesh is None:
+                records.append(run_cell(arch, shape, device=args.device,
+                                        batch=args.batch, knobs=knobs))
+            for mesh_name in MESHES.get(args.mesh, []):
+                records.append(run_mesh_cell(arch, shape, mesh_name, device=args.device,
+                                             mode=args.mode,
+                                             seq_shard=not args.no_seq_shard,
+                                             knobs=knobs))
             if args.device == "cuda":
                 torch.cuda.empty_cache()
     ok = sum(r["status"] == "ok" for r in records)

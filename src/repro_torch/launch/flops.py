@@ -13,7 +13,20 @@ every operator, including the backward's and the remat recompute's:
     not a view, each tensor once per operator. XLA's fused "bytes
     accessed" has no counterpart in an eager program, so this overstates
     the traffic: a memory term built on it is an upper bound;
-  * collective bytes: 0 on one card.
+  * collective bytes: on a mesh on a process group (``core/world.py``),
+    the output bytes of every collective this rank issues, by the
+    reference's five kinds (``hlo_analysis.py``'s per-device convention):
+    those of ``core/spmd.py``'s bodies and those DTensor inserts to
+    reshard. 0 on one card.
+
+Under DTensor (a cell on a fake group of 256 or 512 ranks) the count is
+one rank's: an operator on DTensors is not counted itself (its shapes
+are global); the counter steps aside (``NotImplemented``), DTensor runs
+it as local operators on this rank's blocks and the collectives its
+redistributions need, and those come back through the counter. An
+exchange that sends to one rank and receives from one is a
+``collective-permute`` (``spmd.ppermute``); DTensor's own reshard of one
+sharded dim into another is ``all-to-all``.
 
 Loop-aware, as the reference's count is: a loop over time, chunks or
 microbatches runs through ``models/loops.py``, which on the meta device
@@ -49,7 +62,8 @@ _aten = torch.ops.aten
 # empty one, detach or alias it, or read a scalar's value.
 _NO_TRAFFIC = {_aten.detach, _aten.alias, _aten.empty, _aten.empty_strided,
                _aten.empty_like, _aten.new_empty, _aten.lift_fresh,
-               _aten._local_scalar_dense}
+               _aten._local_scalar_dense,
+               getattr(torch.ops._c10d_functional, "wait_tensor", None)}
 
 
 # Torch versions on which the backward's attribution below was checked
@@ -88,15 +102,95 @@ class Costs:
     bytes_unfused: float = 0.0
     collective_bytes: float = 0.0
     collective_by_kind: dict = dataclasses.field(default_factory=dict)
+    collective_count_by_kind: dict = dataclasses.field(default_factory=dict)
+    # (kind, output shape, dtype) -> [firings, bytes of one firing]
+    collective_ops: dict = dataclasses.field(default_factory=dict)
     seconds: float = 0.0
     # The step's arguments (weights, optimizer state, batch or cache): a
-    # lower bound on the memory the step holds.
+    # lower bound on the memory the step holds; on a mesh, this rank's.
     argument_bytes: float = 0.0
+    # On a mesh (launch/steps.py::Cell.count): this rank's output bytes,
+    # and those of outputs that are arguments updated in place.
+    output_bytes: float = 0.0
+    alias_bytes: float = 0.0
+
+
+# The reference's five kinds (hlo_analysis.COLLECTIVES), by the operator
+# that issues them: torch.distributed's functional collectives, and
+# DTensor's reshard of one sharded dim into another.
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional",
+                          "_c10d_functional_autograd", "_dtensor")
+_KIND_OF = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+            "reduce_scatter_tensor": "reduce-scatter",
+            "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
+
+
+def _collective_kind(func, args) -> str | None:
+    """The kind of collective ``func`` is, None for any other operator
+    (and for bookkeeping such as ``wait_tensor``, which moves nothing);
+    raises on a collective outside the five kinds."""
+    ns, _, name = func.name().partition("::")
+    if ns not in _COLLECTIVE_NAMESPACES:
+        return None
+    name = name.split(".")[0]
+    kind = _KIND_OF.get(name)
+    if kind is None:
+        if any(w in name for w in ("gather", "reduce", "scatter", "broadcast",
+                                   "all", "permute")):
+            raise ValueError(f"collective {func.name()} is none of {COLLECTIVES}")
+        return None                  # wait_tensor and other bookkeeping
+    if name == "all_to_all_single":
+        out_splits, in_splits = args[1], args[2]
+        if len(out_splits) > 1 and sum(1 for n in out_splits if n) <= 1 \
+                and sum(1 for n in in_splits if n) <= 1:
+            kind = "collective-permute"
+    return kind
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Per-device collective output bytes and firings by kind: the
+    reference's ``hlo_analysis.CollectiveStats``."""
+
+    bytes_by_kind: dict
+    count_by_kind: dict
+
+    @classmethod
+    def of(cls, costs: Costs) -> "CollectiveStats":
+        return cls(dict(costs.collective_by_kind), dict(costs.collective_count_by_kind))
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes_by_kind.values())
+
+    def summary(self) -> str:
+        rows = [
+            f"  {k:20s} n={self.count_by_kind[k]:6.0f}  "
+            f"{self.bytes_by_kind[k] / 2**20:12.2f} MiB"
+            for k in sorted(self.bytes_by_kind)
+        ]
+        rows.append(f"  {'TOTAL':20s}         {self.total_bytes / 2**20:12.2f} MiB")
+        return "\n".join(rows)
+
+
+def dominant_ops(costs: Costs, top: int | None = 8) -> list[tuple[str, float]]:
+    """The largest single collectives of a count (``hlo_analysis.
+    dominant_ops``): ("kind shape dtype x firings", bytes of one firing),
+    largest first; all of them with ``top`` None."""
+    rows = [(f"{kind} {list(shape)} {str(dtype).replace('torch.', '')} "
+             f"x {float(n):g}", float(b))
+            for (kind, shape, dtype), (n, b) in costs.collective_ops.items()]
+    rows.sort(key=lambda r: -r[1])
+    return rows[:top]
 
 
 def nbytes(tree) -> int:
-    """Bytes of the tensors in nested dicts, lists, tuples and dataclasses."""
+    """Bytes of the tensors in nested dicts, lists, tuples and dataclasses
+    (of a DTensor, its block on this rank)."""
     if isinstance(tree, torch.Tensor):
+        tree = getattr(tree, "_local_tensor", tree)
         return tree.numel() * tree.element_size()
     if dataclasses.is_dataclass(tree):
         tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
@@ -119,6 +213,13 @@ class Counter(TorchDispatchMode):
         # runs (a microbatch's backward runs inside its trip).
         self._spans: list[list] = []
         self._quiet = False
+        self.coll_bytes: dict[str, Fraction] = {}
+        self.coll_count: dict[str, Fraction] = {}
+        self.coll_ops: dict[tuple, list] = {}
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        self._dtensor, self._fake = DTensor, FakeTensor
 
     def _next_seq(self) -> int:
         """The sequence number the next autograd node gets, less one."""
@@ -161,10 +262,24 @@ class Counter(TorchDispatchMode):
         return inner[1] if inner else Fraction(1)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            # DTensor turns it into local operators and collectives, which
+            # come back here; the global operator is not counted.
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self._quiet:
+        if self._quiet or any(issubclass(t, self._fake) for t in types):
+            # (DTensor infers a global output's shape by running the
+            # operator on fake tensors: no work of this rank's)
             return out
+        kind = _collective_kind(func, args)
+        if kind is not None:
+            mult = self._multiplier()
+            b = nbytes(out)
+            self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + mult * b
+            self.coll_count[kind] = self.coll_count.get(kind, 0) + mult
+            key = (kind, tuple(out.shape), out.dtype)
+            self.coll_ops.setdefault(key, [Fraction(0), b])[0] += mult
         packet = func._overloadpacket
         mult = None
         if packet in flop_registry:
@@ -191,6 +306,11 @@ def count(fn: Callable, *args, loop_aware: bool = True) -> Costs:
         if token is not None:
             loops.COUNTER.reset(token)
     return Costs(flops=float(counter.flops), bytes_unfused=float(counter.bytes),
+                 collective_bytes=float(sum(counter.coll_bytes.values())),
+                 collective_by_kind={k: float(v) for k, v in counter.coll_bytes.items()},
+                 collective_count_by_kind={k: float(v)
+                                           for k, v in counter.coll_count.items()},
+                 collective_ops=counter.coll_ops,
                  seconds=time.perf_counter() - t0)
 
 

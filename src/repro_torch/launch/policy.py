@@ -13,7 +13,9 @@ decompose philosophy at the framework level: given the fixed
 plus the batch specification over ("pod", "data"). A sharding is a
 :class:`NamedSharding` record of a mesh and a spec, filtered to the
 mesh's axes; ``apply`` cuts a global tensor into the mesh's stacked
-blocks (``spmd.split``).
+blocks (``spmd.split``), and on a mesh on a process group
+(``core/world.py``) ``placements`` and ``distribute`` give the DTensor
+of it.
 """
 from __future__ import annotations
 
@@ -75,6 +77,39 @@ class NamedSharding:
         """``x`` on the mesh's device as stacked ``(*mesh.shape, *block)``
         blocks; raises if a dim does not split evenly."""
         return spmd.split(x.to(self.mesh.device), self.spec, self.mesh)
+
+    def placements(self, ndim: int | None = None) -> list:
+        """The spec as DTensor placements on the mesh's ``DeviceMesh``: an
+        entry over several axes shards its dim on each of them, major
+        first; a mesh axis the spec does not name replicates."""
+        return spmd.placements(self.spec, self.mesh,
+                               len(self.spec) if ndim is None else ndim)
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        """The block of a ``shape`` tensor at mesh position (0, ..., 0):
+        each sharded dim cut by ``torch.chunk`` over its axes in turn, so
+        an uneven split leaves this block the largest."""
+        out = list(shape)
+        for d, e in enumerate(spmd._spec_for(self.spec, len(out), self.mesh)):
+            for a in spmd._names(e):
+                out[d] = -(-out[d] // self.mesh.axis_size(a))
+        return tuple(out)
+
+    def distribute(self, x: torch.Tensor):
+        """``x`` (a global tensor, or a meta one) as a DTensor on the mesh's
+        ``DeviceMesh``: this rank's block of it, under the spec."""
+        if self.mesh.dist is None:
+            raise ValueError("distribute needs a mesh on a process group "
+                             "(core/world.py::on_world)")
+        from torch.distributed.tensor import DTensor
+
+        if x.device.type == "meta":
+            local = torch.empty(self.local_shape(x.shape), dtype=x.dtype, device="meta")
+        else:
+            local = spmd.local_block(x, self.spec, self.mesh, even=False)
+        return DTensor.from_local(local, self.mesh.dist, self.placements(x.ndim),
+                                  run_check=False, shape=x.shape,
+                                  stride=torch.empty(x.shape, device="meta").stride())
 
 
 def shard(mesh: spmd.Mesh, spec: P) -> NamedSharding:

@@ -1,27 +1,34 @@
-"""Step functions of the launchers (``repro.launch.steps.make_cell``'s train,
-prefill and decode branches).
+"""Step functions of the launchers and the production-mesh cell (the port
+of ``repro.launch.steps``).
 
 The reference builds a lowering cell per (arch x shape): a step callable
-plus abstract arguments and shardings for XLA. Here the step callables
-are what is left: the abstract arguments are ``launch/specs.py``'s meta
-tensors, and the dry run (``launch/dryrun.py``) counts a step on them in
-place of lowering it. ``mesh_settings`` is ``make_cell``'s setting of the
+plus abstract arguments and shardings for XLA. On one card the step
+callables are what is left: the abstract arguments are
+``launch/specs.py``'s meta tensors, and the dry run
+(``launch/dryrun.py``) counts a step on them in place of lowering it. On
+a production mesh ``make_cell`` builds the whole cell (``Cell``): its
+arguments are meta DTensors on a process group placed by
+``launch/policy.py``'s plan, ``Cell.count`` counts one rank's share and
+``Cell.run`` runs it on a device. ``mesh_settings`` is the one place the
 model's mesh switches (sequence sharding, the layer barrier, the MoE
-groups) for one cell; the shardings themselves are ``launch/policy.py``'s
-plan. The train step keeps the
-reference's gradient accumulation, with the accumulation factor from
+groups) are set for a cell. The train step keeps the reference's
+gradient accumulation, with the accumulation factor from
 ``choose_microbatches``; its loop over microbatches goes through
 ``models/loops.py``, so the count takes one microbatch for all.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Callable
+import time
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.spmd import P as spmd_P
 from repro_torch.models import loops
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.training import optimizer as opt_mod
@@ -29,27 +36,26 @@ from repro_torch.training.loop import TrainState, value_and_grad
 
 
 @contextlib.contextmanager
-def mesh_settings(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+def mesh_settings(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+                  mode: str | None = None, seq_shard: bool = True):
     """The mesh settings of the reference's ``make_cell`` for one cell,
     restored on exit: sequence sharding over 'model' for train and prefill
-    shapes whose length divides by 16, the layer barrier under FSDP, and
-    MoE dispatch groups = gcd(data shards, tokens per step). ``mesh`` is a
-    ``spmd.Mesh`` (None: one card, one data shard); it is put in scope
-    for the block. Yields the sharding mode, ``policy.choose_mode(cfg)``."""
+    shapes whose length divides by 16 (unless ``seq_shard`` is off), the
+    layer barrier under FSDP, and MoE dispatch groups = gcd(data shards,
+    tokens per step). ``mesh`` is a ``spmd.Mesh`` (None: one card, one
+    data shard); it is put in scope for the block. Yields the sharding
+    mode: ``mode``, else ``policy.choose_mode(cfg)``."""
     from repro_torch.core import spmd
     from repro_torch.launch.policy import choose_mode
     from repro_torch.models import sharding as shd
 
     saved = (shd.seq_axis(), shd._LAYER_BARRIER, shd.moe_groups())
-    mode = choose_mode(cfg)
+    mode = mode or choose_mode(cfg)
     shd.set_sequence_sharding(
-        "model" if (shape.kind in ("train", "prefill")
+        "model" if (seq_shard and shape.kind in ("train", "prefill")
                     and shape.seq_len % 16 == 0) else None)
     shd.set_layer_barrier(mode == "fsdp")
-    dp_total = 1
-    for ax in ("pod", "data"):
-        if mesh is not None and ax in mesh.axis_names:
-            dp_total *= mesh.axis_size(ax)
+    dp_total, _ = mesh_dims(mesh)
     tokens_per_step = shape.global_batch * (1 if shape.is_decode else shape.seq_len)
     shd.set_moe_groups(math.gcd(dp_total, tokens_per_step))
     try:
@@ -59,6 +65,18 @@ def mesh_settings(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
         shd.set_sequence_sharding(saved[0])
         shd.set_layer_barrier(saved[1])
         shd.set_moe_groups(saved[2])
+
+
+def mesh_dims(mesh) -> tuple[int, int]:
+    """A mesh's data-parallel size (its 'pod' and 'data' axes) and its
+    model axis size; (1, 1) for no mesh (one card)."""
+    if mesh is None:
+        return 1, 1
+    dp = 1
+    for ax in ("pod", "data"):
+        if ax in mesh.axis_names:
+            dp *= mesh.axis_size(ax)
+    return dp, mesh.axis_size("model") if "model" in mesh.axis_names else 1
 
 
 def choose_microbatches(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,
@@ -115,11 +133,10 @@ def make_train_step(model, shape: ShapeConfig,
         if n_micro == 1:
             loss, grads = value_and_grad(loss_of(batch), state.params)
         else:
-            micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])
-                     for k, v in batch.items()}
+            micro = {k: shd.microbatches(v, n_micro) for k, v in batch.items()}
             loss = 0.0
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             state.params)
             acc = tree_leaves(grads)
             for i in loops.trips(n_micro, next(iter(batch.values()))):
                 mb = {k: v[i] for k, v in micro.items()}
@@ -159,3 +176,309 @@ def make_serve_step(model) -> Callable:
         return model.decode_step(params, cache, pos, token)
 
     return serve_step
+
+
+# ------------------------------------------------- production-mesh cells
+@dataclasses.dataclass
+class Cell:
+    """One (arch x shape) cell on a mesh on a process group (the
+    reference's ``make_cell`` result): the step, its arguments as meta
+    DTensors placed by the plan (this rank's blocks), the in and out
+    shardings, the plan and the mesh. ``count`` takes the place of
+    ``lower().compile()``; ``run`` runs this rank's share once on a
+    device."""
+
+    arch: str
+    cfg: ModelConfig
+    shape: ShapeConfig
+    step_fn: Callable
+    abstract_args: tuple
+    in_shardings: Any
+    out_shardings: Any
+    plan: Any
+    mesh: Any
+    seq_shard: bool = True
+
+    @contextlib.contextmanager
+    def _settings(self, mesh):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with mesh_settings(self.cfg, self.shape, mesh, mode=self.plan.mode,
+                           seq_shard=self.seq_shard), implicit_replication():
+            yield
+
+    def _call(self, args):
+        """The step on ``args``, its outputs redistributed to the out
+        shardings (the reference's ``out_shardings``)."""
+        return _place(self.step_fn(*args), self.out_shardings)
+
+    def count(self):
+        """This rank's loop-aware count of the step (``launch/flops.py``)
+        with its argument, output and aliased-output bytes."""
+        from repro_torch.launch import flops
+
+        held = {}
+
+        def step(*args):
+            held["out"] = self._call(args)
+
+        with self._settings(self.mesh):
+            costs = flops.count(step, *self.abstract_args)
+        costs.argument_bytes = float(_spec_bytes(self.abstract_args, self.in_shardings))
+        costs.output_bytes, costs.alias_bytes = _output_bytes(held["out"],
+                                                              self.abstract_args)
+        return costs
+
+    def run(self, device="cuda", seed: int = 0) -> dict:
+        """This rank's share of the step, once, on ``device``: seeded local
+        blocks (weights N(0, 0.02), token ids below the vocabulary,
+        optimizer moments and caches zero) and the collectives the world
+        carries out (none of their values on a fake group, which moves no
+        data). Returns the seconds, the argument bytes, the devices the
+        local blocks lie on and, on a card, the peak memory since the
+        arguments were made."""
+        from repro_torch.launch import flops
+
+        dev = torch.device(device)
+        mesh = dataclasses.replace(self.mesh, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        args = _seeded(self.abstract_args, gen, self.cfg.vocab_size, dev)
+        arg_bytes = flops.nbytes(args)
+        local_devices = sorted({str(t.device) for t in _local_leaves(args)})
+        cuda = dev.type == "cuda"
+        if cuda:
+            _backward_thread_replication(dev, True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            with self._settings(mesh):
+                t0 = time.perf_counter()
+                out = self._call(args)
+                if cuda:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            if cuda:
+                _backward_thread_replication(dev, False)
+        record = {"step_s": seconds, "argument_bytes": arg_bytes,
+                  "local_devices": local_devices,
+                  "output_devices": sorted({str(t.device) for t in _local_leaves(out)}),
+                  "peak_memory_bytes": None}
+        if cuda:
+            record["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        return record
+
+
+def _backward_thread_replication(device, on: bool) -> None:
+    """DTensor's implicit replication on (or off) in autograd's thread for
+    ``device``. The flag is thread-local (torch 2.13's
+    ``_set_dtensor_allow_implicit_replication``), and autograd runs a
+    CUDA backward, remat recompute included, on a device thread of its
+    own, where a plain tensor saved by the forward (a rotary table) meets
+    the DTensor gradients. A one-node backward sets it there; where the
+    flag is a plain attribute (older torch), it is global already."""
+    setter = getattr(torch._C, "_set_dtensor_allow_implicit_replication", None)
+    if setter is None:
+        return
+
+    class _Set(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            setter(on)
+            return g
+
+    _Set.apply(torch.zeros((), device=device, requires_grad=True)).backward()
+
+
+def _tree(fn, *trees):
+    """``fn`` over the leaves of matching nested dicts, lists, tuples and
+    dataclasses (a None or non-tensor leaf is passed as it is)."""
+    t = trees[0]
+    if dataclasses.is_dataclass(t):
+        return type(t)(*[_tree(fn, *[getattr(x, f.name) for x in trees])
+                         for f in dataclasses.fields(t)])
+    if isinstance(t, dict):
+        return {k: _tree(fn, *[x[k] for x in trees]) for k in t}
+    if isinstance(t, (list, tuple)):
+        out = [_tree(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
+    return fn(*trees)
+
+
+def _spec_bytes(args, shardings) -> int:
+    """This rank's bytes of ``args`` under ``shardings``, each leaf's block
+    as its spec cuts it (on a folded mesh a ZeRO-1 moment's DTensor is cut
+    over the folded axes, its spec over 'data' alone); the decode step's
+    int position counts as the reference's int32 scalar, unless the step
+    never reads it (its sharding None: jit drops an unused argument)."""
+    total = []
+
+    def one(x, sh):
+        if isinstance(x, torch.Tensor):
+            total.append(math.prod(sh.local_shape(x.shape)) * x.element_size())
+        elif isinstance(x, int) and sh is not None:
+            total.append(4)         # decode's position: the reference's int32 scalar
+
+    _tree(one, args, shardings)
+    return sum(total)
+
+
+def _on_fold(sh, x):
+    """A sharding of ``x`` as a mesh with folded axes can hold it: an entry
+    that names part of the folded axes names them all, or none where
+    they do not divide the dim. Only ZeRO-1's moments need it (their
+    'data' on the multi mesh, replicated over 'pod')."""
+    fold = sh.mesh.fold
+    if not fold:
+        return sh
+    from repro_torch.launch.policy import NamedSharding
+
+    size = math.prod(sh.mesh.axis_size(a) for a in fold)
+    entries = []
+    for d, e in enumerate(sh.spec):
+        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        if set(names) & set(fold):
+            e = fold if x.shape[d] % size == 0 else None
+        entries.append(e)
+    return NamedSharding(sh.mesh, spmd_P(*entries))
+
+
+def _local_leaves(tree) -> list:
+    out = []
+    _tree(lambda x: out.append(getattr(x, "_local_tensor", x))
+          if isinstance(x, torch.Tensor) else None, tree)
+    return out
+
+
+def _place(out, shardings):
+    """``out``'s DTensors redistributed to ``shardings`` (a matching tree
+    of ``NamedSharding``)."""
+    def one(x, sh):
+        if sh is None or not hasattr(x, "placements"):
+            return x
+        want = sh.placements(x.ndim)
+        return x if tuple(x.placements) == tuple(want) else x.redistribute(
+            sh.mesh.dist, want)
+
+    return _tree(one, out, shardings)
+
+
+# XLA's output_size_in_bytes counts a tuple output's index table: one
+# 8-byte pointer a leaf (smollm-135m's train step: 37 leaves, 296 bytes).
+TUPLE_POINTER_BYTES = 8
+
+
+def _output_bytes(out, args) -> tuple[float, float]:
+    """This rank's output bytes as XLA's memory analysis counts them (the
+    leaves, and a tuple's pointer table when there are several), and
+    those of outputs that are an argument updated in place (the
+    reference's donated, aliased outputs)."""
+    ins = {id(t) for t in _local_leaves(args)}
+    leaves = _local_leaves(out)
+    total = alias = 0
+    for t in leaves:
+        b = t.numel() * t.element_size()
+        total += b
+        alias += b if id(t) in ins else 0
+    if len(leaves) > 1:
+        total += TUPLE_POINTER_BYTES * len(leaves)
+    return float(total), float(alias)
+
+
+def _seeded(abstract, gen: torch.Generator, vocab: int, device):
+    """Local blocks on ``device`` for a cell's meta DTensor arguments, each
+    wrapped back with its placements and global shape."""
+    from torch.distributed.tensor import DTensor
+
+    def fill(zero):
+        def one(x):
+            if not isinstance(x, DTensor):
+                return x
+            loc = x._local_tensor
+            if not loc.dtype.is_floating_point:
+                t = torch.randint(0, vocab, loc.shape, generator=gen, device=device,
+                                  dtype=loc.dtype)
+            elif zero:
+                t = torch.zeros(loc.shape, dtype=loc.dtype, device=device)
+            else:
+                t = torch.randn(loc.shape, generator=gen, device=device,
+                                dtype=torch.float32).mul_(0.02).to(loc.dtype)
+            return DTensor.from_local(t, x.device_mesh, x.placements, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+        return one
+
+    if isinstance(abstract[0], TrainState):
+        state, batch = abstract
+        return (TrainState(_tree(fill(False), state.params),
+                           _tree(fill(True), state.opt), None),
+                _tree(fill(False), batch))
+    if len(abstract) == 2:                          # prefill: params, inputs
+        return tuple(_tree(fill(False), a) for a in abstract)
+    params, cache, pos, token = abstract            # decode
+    return (_tree(fill(False), params), _tree(fill(True), cache), pos,
+            _tree(fill(False), token))
+
+
+def make_cell(arch: str, cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+              mode: str | None = None, seq_shard: bool = True) -> Cell:
+    """The cell of one (arch x shape) on ``mesh``, a ``spmd.Mesh`` on a
+    process group (``core/world.py::on_world``): the train step (with
+    ``choose_microbatches`` from the mesh's data and model sizes), the
+    plain prefill or one decode step, on meta DTensors placed by the
+    plan: the train state with ``opt_moments``, the batch with
+    ``batch_like``, the cache with ``plan.cache``. The plain route, as the
+    reference's cells (``use_pallas=False``): no kernel launches."""
+    from repro_torch.launch import policy as policy_mod
+    from repro_torch.launch import specs
+    from repro_torch.models.params import abstract_params
+    from repro_torch.models.registry import build
+
+    if mesh.dist is None:
+        raise ValueError("make_cell needs a mesh on a process group "
+                         "(core/world.py::on_world)")
+    model = build(cfg)
+    plan = policy_mod.make_plan(cfg, mesh, mode)
+
+    def place(tree, shardings):
+        return _tree(lambda x, sh: sh.distribute(x), tree, shardings)
+
+    p_sh = plan.params(model.schema)
+    params = place(abstract_params(model.schema), p_sh)
+    if shape.kind == "train":
+        m_sh = plan.opt_moments(model.schema)
+        m_dt = tree_map(_on_fold, m_sh, abstract_params(model.schema, torch.float32))
+        moments = lambda: place(abstract_params(model.schema, torch.float32), m_dt)  # noqa: E731
+        state_sh = TrainState(p_sh, opt_mod.AdamWState(plan.replicated(), m_sh, m_sh), None)
+        state_out = TrainState(p_sh, opt_mod.AdamWState(plan.replicated(), m_dt, m_dt), None)
+        state = TrainState(params, opt_mod.AdamWState(
+            plan.replicated().distribute(torch.empty((), dtype=torch.int32, device="meta")),
+            moments(), moments()), None)
+        batch = specs.batch_specs(cfg, shape)
+        batch_sh = plan.batch_like(batch)
+        n_micro = choose_microbatches(cfg, shape, *mesh_dims(mesh))
+        metrics_sh = {"loss": plan.replicated(), "grad_norm": plan.replicated(),
+                      "lr": plan.replicated()}
+        return Cell(arch, cfg, shape, make_train_step(model, shape, n_micro=n_micro),
+                    (state, place(batch, batch_sh)), (state_sh, batch_sh),
+                    (state_out, metrics_sh), plan, mesh, seq_shard)
+    if shape.kind == "prefill":
+        inputs = specs.prefill_specs(cfg, shape)["inputs"]
+        in_sh = plan.batch_like({"inputs": inputs})["inputs"]
+        return Cell(arch, cfg, shape, make_prefill_step(model, use_kernel=False),
+                    (params, in_sh.distribute(inputs)), (p_sh, in_sh),
+                    plan.replicated(), plan, mesh, seq_shard)
+    d = specs.decode_specs(cfg, shape)
+    cache_sh = plan.cache(d["cache"])
+    tok_sh = plan.batch_like({"t": d["token"]})["t"]
+    logits_sh = plan.batch_like({"l": ((shape.global_batch, 1), torch.float32)})["l"]
+    return Cell(arch, cfg, shape, make_serve_step(model),
+                (params, place(d["cache"], cache_sh), shape.seq_len - 1,
+                 tok_sh.distribute(d["token"])),
+                (p_sh, cache_sh,
+                 plan.replicated() if getattr(model, "decode_reads_pos", True) else None,
+                 tok_sh), (logits_sh, cache_sh),
+                plan, mesh, seq_shard)

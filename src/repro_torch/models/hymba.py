@@ -21,7 +21,8 @@ from torch import nn
 
 from repro_torch.models import layers, loops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import layer_barrier
+from repro_torch.models.sharding import (decode_layer, layer_barrier, logits_sharded,
+                                         merge_heads, proj, residual)
 from repro_torch.models.params import (
     ParamDef,
     Schema,
@@ -101,13 +102,13 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
     dt_ = x.dtype
     di = d_inner(cfg)
     n = cfg.ssm_state
-    xz = x @ params["w_in"].to(dt_)
+    xz = proj(x, params["w_in"].to(dt_))
     xs, z = torch.chunk(xz, 2, dim=-1)
     xs, conv_state = _causal_conv(xs, params["conv"].to(dt_), conv_state)
     xs = F.silu(xs)
-    bc = xs @ params["w_bc"].to(dt_)
+    bc = proj(xs, params["w_bc"].to(dt_))
     B_ssm, C_ssm = torch.chunk(bc, 2, dim=-1)            # (B,S,n)
-    dt_raw = (xs @ params["w_dt"].to(dt_)) @ params["w_dt_out"].to(dt_)
+    dt_raw = proj(proj(xs, params["w_dt"].to(dt_)), params["w_dt_out"].to(dt_))
     dt = F.softplus(
         dt_raw.to(torch.float32) + params["dt_bias"].to(torch.float32)
     )                                                   # (B,S,di)
@@ -122,7 +123,7 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
             )
             y = y32.to(dt_) + xs * params["D"].to(dt_)
             y = y * F.silu(z)
-            return y @ params["w_out"].to(dt_), state, conv_state
+            return proj(y, params["w_out"].to(dt_)), state, conv_state
         state = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
 
     # Discretize inside the step (never a (B,S,di,n) tensor), as the
@@ -140,7 +141,7 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
     y = loops.stack(ys, S, dim=1).to(dt_)                # (B,S,di)
     y = y + xs * params["D"].to(dt_)
     y = y * F.silu(z)
-    return y @ params["w_out"].to(dt_), state, conv_state
+    return proj(y, params["w_out"].to(dt_)), state, conv_state
 
 
 # ------------------------------------------------------------------- layer
@@ -197,23 +198,23 @@ class HymbaLM(nn.Module):
     # ------------------------------------------------------------- forward
     def hidden_states(self, params, tokens, *, use_kernel=False, remat=True):
         cfg = self.cfg
-        x = layers.embed(params["embed"], tokens, _dtype(cfg))
+        x = residual(layers.embed(params["embed"], tokens, _dtype(cfg)))
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         for p in unstack(params["layers"]):
-            x = remat_apply(block_apply, remat, layer_barrier(p), x, cfg, positions,
-                            use_kernel)
+            x = residual(remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
+                                     positions, use_kernel))
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
     def logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                     remat=remat)
-        return layers.unembed({"table": params["lm_head"]}, x), aux
+        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x)), aux
 
     def last_logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                   remat=remat)
-        return layers.unembed({"table": params["lm_head"]}, x[:, -1:])
+        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x[:, -1:]))
 
     def loss(self, params, batch, *, use_kernel=False, remat=True):
         logits, _ = self.logits(params, batch["inputs"], use_kernel=use_kernel,
@@ -245,10 +246,8 @@ class HymbaLM(nn.Module):
         x = layers.embed(params["embed"], tokens, dt)
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         slot = pos % cache["k"].shape[2]
-        B = x.shape[0]
-        H, hd = cfg.n_heads, cfg.resolved_head_dim
         for i in range(cfg.n_layers):
-            p = layer(params["layers"], i)
+            p = decode_layer(layer(params["layers"], i), x)
             c = layer(cache, i)
             h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
             # --- attention side (ring-buffer SWA cache)
@@ -258,7 +257,7 @@ class HymbaLM(nn.Module):
             v_c = _cache_update(c["v"], v[:, 0], slot)
             a = layers.decode_attention(q, k_c, v_c, pos,
                                         window=cfg.sliding_window)
-            a = a.reshape(B, 1, H * hd) @ ap["wo"].to(dt)
+            a = proj(merge_heads(a), ap["wo"].to(dt))
             # --- mamba side
             m, ssm, conv = mamba_mixer(p["mamba"], h, cfg, state=c["ssm"],
                                        conv_state=c["conv"])

@@ -120,6 +120,9 @@ def chunked_attention(q, k, v, *, window: int = 0, scale: float | None = None,
     Every (query chunk, key chunk) pair does the same products, so a
     loop-aware count (``models/loops.py``) takes one pair for all of them.
     """
+    # A DTensor cut along the sequence is gathered first: the chunk loop
+    # indexes it (XLA's partitioner reshards the reference's the same way).
+    q, k, v = (shd.unshard(t, -3) for t in (q, k, v))
     *lead, Sq, H, hd = q.shape
     *lead_k, Sk, Kv, _ = k.shape
     hd_v = v.shape[-1]
@@ -353,10 +356,10 @@ def swiglu_schema(d_model: int, d_ff: int) -> dict:
 
 def swiglu(params, x):
     dtype = x.dtype
-    g = x @ params["w_gate"].to(dtype)
-    u = x @ params["w_up"].to(dtype)
+    g = shd.proj(x, params["w_gate"].to(dtype))
+    u = shd.proj(x, params["w_up"].to(dtype))
     h = F.silu(g) * u
-    return h @ params["w_down"].to(dtype)
+    return shd.proj(h, params["w_down"].to(dtype))
 
 
 # --------------------------------------------------------------- embedding
@@ -367,22 +370,46 @@ def embedding_schema(vocab: int, d_model: int) -> dict:
 
 def embed(params, ids, dtype):
     # Gather, then cast: the same values as the reference's cast-then-
-    # gather, without casting the whole table.
+    # gather, without casting the whole table. A DTensor table takes
+    # F.embedding, whose forward and backward DTensor partitions over a
+    # cut vocabulary (torch 2.11 failed on indexing's backward there).
+    if hasattr(params["table"], "placements"):
+        return F.embedding(ids, params["table"]).to(dtype)
     return params["table"][ids].to(dtype)
 
 
 def unembed(params, x, table=None):
     t = (table if table is not None else params["table"]).to(x.dtype)
-    return x @ t.T
+    return shd.proj(x, t.T)
 
 
 # -------------------------------------------------------------------- loss
 def cross_entropy(logits, labels):
     """The reference models' token loss: fp32 log-softmax, positions whose
     label is negative masked, the mean over the rest. logits (..., V),
-    labels (...) of any integer dtype."""
+    labels (...) of any integer dtype.
+
+    On a DTensor (a mesh on a process group, the vocab sharded over
+    'model') the log-softmax is written out as max, log-sum-exp and a
+    one-hot pick, each a reduction over the vocab that DTensor ends with
+    an all-reduce of (B, S) partials, as XLA's partitioner reduces over a
+    sharded dim; DTensor's own log-softmax and gather would gather the
+    whole (B, S, V) vocab first."""
+    if hasattr(logits, "placements"):
+        return _cross_entropy_sharded(logits, labels)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     mask = (labels >= 0).to(torch.float32)
     safe = torch.clamp(labels, min=0).long()
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _cross_entropy_sharded(logits, labels):
+    x = logits.to(torch.float32)
+    m = x.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(x - m).sum(dim=-1))
+    V = x.shape[-1]
+    onehot = torch.clamp(labels, min=0).long()[..., None] == torch.arange(V, device=x.device)
+    picked = (x * onehot).sum(dim=-1)
+    mask = (labels >= 0).to(torch.float32)
+    return ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -129,10 +129,12 @@ def _moe_shard_map(params, x, cfg: ModelConfig, mesh, batch_axes, ep, dp):
     all_to_all's the buckets to the expert owners along the model axis,
     runs its local experts, and reverses the exchange.
 
-    The body sees every rank's block at once: ranks are the groups of
-    ``route`` and ``dispatch_slots``, and each expert product folds the
-    batch-axis ranks into its token dim, so the model-sharded weights are
-    read as they are, not copied for each replica."""
+    On virtual ranks the body sees every rank's block at once: ranks are
+    the groups of ``route`` and ``dispatch_slots``, and each expert
+    product folds the batch-axis ranks into its token dim, so the
+    model-sharded weights are read as they are, not copied for each
+    replica. On a process group it sees its own block (one group, its
+    own (E_l, D, F) experts); ``spmd.lead_dims()`` tells the two apart."""
     spmd.count("moe_shard_map")
     E = cfg.padded_experts
     K = cfg.topk
@@ -142,19 +144,21 @@ def _moe_shard_map(params, x, cfg: ModelConfig, mesh, batch_axes, ep, dp):
     others = [d for d in range(nd) if d != a]
     all_axes = tuple(batch_axes) + (shd.MODEL_AXIS,)
     n_dev = dp * ep
-    R = math.prod(mesh.shape)
     # rank -> its model-axis block: index 0 along every other mesh dim
     own = tuple(slice(None) if d == a else 0 for d in range(nd))
 
     def body(x_l, router, wg, wu, wd):
+        L = spmd.lead_dims()
+        lead = tuple(x_l.shape[:L])
         *_, Bl, Sl, D = x_l.shape
         Nl = Bl * Sl
+        R = math.prod(lead)
         dt = x_l.dtype
         dev = x_l.device
-        stacked = lambda t: t.reshape(*mesh.shape, *t.shape[1:])
+        stacked = lambda t: t.reshape(lead + tuple(t.shape[1:]))  # noqa: E731
         xg = x_l.reshape(R, Nl, D)                     # ranks as groups
         logits, probs, gate_vals, expert_idx = route(
-            {"router": router[(0,) * nd]}, xg, cfg)
+            {"router": router[(0,) * L]}, xg, cfg)
         # ---- aux loss from psum-averaged stats (the z-loss stays local)
         me = spmd.psum(stacked(probs.mean(dim=1)), all_axes) / n_dev
         flat = expert_idx.reshape(R, Nl * K)
@@ -177,23 +181,30 @@ def _moe_shard_map(params, x, cfg: ModelConfig, mesh, batch_axes, ep, dp):
         send.index_put_((r_idx, flat, safe_pos), contrib, accumulate=True)
 
         # ---- EP all_to_all: (ep, E_l, C, D) -> (ep senders, E_l, C, D)
-        recv = spmd.all_to_all(send.reshape(*mesh.shape, ep, E_l, C, D),
+        recv = spmd.all_to_all(send.reshape(*lead, ep, E_l, C, D),
                                shd.MODEL_AXIS, split_axis=0, concat_axis=0)
-        # Each expert owner's tokens, the other ranks' folded in:
-        # (*mesh, ep_s, E_l, C, D) -> (ep, E_l, others * ep_s * C, D)
-        h = recv.permute(a, nd + 1, *others, nd, nd + 2, nd + 3).reshape(ep, E_l, -1, D)
+        if L:
+            # Each expert owner's tokens, the other ranks' folded in:
+            # (*mesh, ep_s, E_l, C, D) -> (ep, E_l, others * ep_s * C, D)
+            h = recv.permute(a, nd + 1, *others, nd, nd + 2, nd + 3).reshape(ep, E_l, -1, D)
+            wg, wu, wd = wg[own], wu[own], wd[own]
+        else:
+            h = recv.transpose(0, 1).reshape(E_l, ep * C, D)
         del send, recv
 
         # ---- local expert FFN, on each owner's (E_l, D, F) weights
-        g = torch.matmul(h, wg[own].to(dt))
-        u = torch.matmul(h, wu[own].to(dt))
-        y = torch.matmul(F.silu(g) * u, wd[own].to(dt))
+        g = torch.matmul(h, wg.to(dt))
+        u = torch.matmul(h, wu.to(dt))
+        y = torch.matmul(F.silu(g) * u, wd.to(dt))
         del h, g, u
 
-        # ---- reverse exchange: back to (*mesh, ep_s, E_l, C, D)
-        y = y.reshape(ep, E_l, *[mesh.shape[d] for d in others], ep, C, D)
-        back = [0 if d == a else 2 + others.index(d) for d in range(nd)]
-        y = y.permute(*back, nd + 1, 1, nd + 2, nd + 3)
+        # ---- reverse exchange: back to (*lead, ep_s, E_l, C, D)
+        if L:
+            y = y.reshape(ep, E_l, *[mesh.shape[d] for d in others], ep, C, D)
+            back = [0 if d == a else 2 + others.index(d) for d in range(nd)]
+            y = y.permute(*back, nd + 1, 1, nd + 2, nd + 3)
+        else:
+            y = y.reshape(E_l, ep, C, D).transpose(0, 1)
         y_back = spmd.all_to_all(y, shd.MODEL_AXIS, split_axis=0, concat_axis=0)
         y_back = y_back.reshape(R, E, C, D)
 
@@ -201,7 +212,7 @@ def _moe_shard_map(params, x, cfg: ModelConfig, mesh, batch_axes, ep, dp):
         gathered = y_back[r_idx, flat, safe_pos] * w[..., None]
         out = torch.zeros((R, Nl, D), dtype=dt, device=dev)
         out.index_put_((r_idx, tok_flat), gathered, accumulate=True)
-        return out.reshape(*mesh.shape, Bl, Sl, D), aux
+        return out.reshape(*lead, Bl, Sl, D), aux
 
     x_spec = spmd.P(batch_axes if batch_axes else None, shd.MODEL_AXIS, None)
     w_spec = spmd.P(shd.MODEL_AXIS, None, None)
@@ -220,54 +231,120 @@ def _moe_dense(params, x: torch.Tensor, cfg: ModelConfig):
     Group-local dispatch: tokens are routed within G = ``moe_groups()``
     groups (1 unless set; 1 when G does not divide the tokens). Every
     shape comes from x's, so no step waits for the card (``bincount`` or
-    a tensor ``repeat_interleave`` would)."""
+    a tensor ``repeat_interleave`` would). A DTensor on a mesh on a
+    process group takes ``_moe_dense_pg``."""
+    mesh = shd._current_mesh()
+    if mesh is not None and mesh.dist is not None and shd._is_dtensor(x):
+        return _moe_dense_pg(params, x, cfg, mesh)
     B, S, D = x.shape
-    E = cfg.padded_experts
-    K = cfg.topk
     N = B * S
     G = shd.moe_groups()
     if N % G != 0:
         G = 1
-    Ng = N // G
-    xg = x.reshape(G, Ng, D)
+    xg = shd.constrain(x.reshape(G, N // G, D), shd.BATCH_AXES)
+    dt = x.dtype
 
-    logits, probs, gate_vals, expert_idx = route(params, xg, cfg)
+    def experts(buf):
+        buf = shd.constrain(buf, shd.BATCH_AXES, shd.MODEL_AXIS)   # EP all-to-all boundary
+        gh = torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))
+        uh = torch.einsum("gecd,edf->gecf", buf, params["w_up"].to(dt))
+        y = torch.einsum("gecf,efd->gecd", F.silu(gh) * uh, params["w_down"].to(dt))
+        return shd.constrain(y, shd.BATCH_AXES, shd.MODEL_AXIS)
 
-    # ---- aux losses (load balance + router z-loss), global
-    me = probs.reshape(N, E).mean(dim=0)
+    out, (me, ce, z) = _dispatch_combine(params["router"], xg, cfg, experts)
+    aux = cfg.n_experts * torch.sum(me * ce) + z * 1e-4
+    out = shd.constrain(out, shd.BATCH_AXES).reshape(B, S, D)
+    if cfg.n_shared_experts:
+        out = out + layers.swiglu(params["shared"], x)
+    return out, aux
+
+
+def _dispatch_combine(router, xg, cfg: ModelConfig, experts):
+    """Route grouped tokens xg (G, Ng, D), dispatch them into a
+    (G, E, C, D) buffer, run ``experts(buf)`` -> y of the buffer's shape,
+    and combine y back to tokens (G, Ng, D). Also returns the aux loss's
+    statistics: the mean router probabilities and the share of choices
+    per expert (E,), and the mean squared router log-sum-exp."""
+    G, Ng, D = xg.shape
+    E = cfg.padded_experts
+    K = cfg.topk
+    dev = xg.device
+    logits, probs, gate_vals, expert_idx = route({"router": router}, xg, cfg)
+    me = probs.reshape(G * Ng, E).mean(dim=0)
     flat_idx = expert_idx.reshape(-1)
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, flat_idx, torch.ones(flat_idx.shape, dtype=torch.float32, device=x.device)
-    ) / (N * K)
-    aux = cfg.n_experts * torch.sum(me * ce)
-    aux = aux + torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * 1e-4
+    ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, flat_idx, torch.ones(flat_idx.shape, dtype=torch.float32, device=dev)
+    ) / (G * Ng * K)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     # ---- capacity-based dispatch
     C = dispatch_capacity(Ng, cfg)
     NgK = Ng * K
     e_flat = expert_idx.reshape(G, NgK)
     pos_in_e, keep = dispatch_slots(expert_idx, E, C)
-    tok_flat = (torch.arange(NgK, device=x.device) // K).expand(G, NgK)
-    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, NgK)
-    w = (gate_vals.reshape(G, NgK) * keep).to(x.dtype)
+    tok_flat = (torch.arange(NgK, device=dev) // K).expand(G, NgK)
+    g_idx = torch.arange(G, device=dev)[:, None].expand(G, NgK)
+    w = (gate_vals.reshape(G, NgK) * keep).to(xg.dtype)
     safe_pos = torch.where(keep, pos_in_e, C - 1)
     contrib = torch.where(keep[..., None], xg[g_idx, tok_flat],
-                          torch.zeros((), dtype=x.dtype, device=x.device))
-    buf = torch.zeros((G, E, C, D), dtype=x.dtype, device=x.device)
+                          torch.zeros((), dtype=xg.dtype, device=dev))
+    contrib = shd.constrain(contrib, shd.BATCH_AXES)
+    buf = torch.zeros((G, E, C, D), dtype=xg.dtype, device=dev)
     buf.index_put_((g_idx, e_flat, safe_pos), contrib, accumulate=True)
-
-    # ---- expert FFN
-    dt = x.dtype
-    gh = torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))
-    uh = torch.einsum("gecd,edf->gecf", buf, params["w_up"].to(dt))
-    y = torch.einsum("gecf,efd->gecd", F.silu(gh) * uh, params["w_down"].to(dt))
+    y = experts(buf)
 
     # ---- combine back to tokens
-    gathered = y[g_idx, e_flat, safe_pos] * w[..., None]
-    out = torch.zeros((G, Ng, D), dtype=dt, device=x.device)
+    gathered = shd.constrain(y[g_idx, e_flat, safe_pos] * w[..., None], shd.BATCH_AXES)
+    out = torch.zeros((G, Ng, D), dtype=xg.dtype, device=dev)
     out.index_put_((g_idx, tok_flat), gathered, accumulate=True)
-    out = out.reshape(B, S, D)
+    return out, (me, ce, z)
 
+
+def _moe_dense_pg(params, x, cfg: ModelConfig, mesh):
+    """The dense path on a mesh on a process group: what the reference's
+    constraints make XLA do with it (token groups over the data shards,
+    the buffer's experts over 'model'), written out as a shard_map, since
+    DTensor has no rule for routing's sorts and scatters. Each rank routes
+    its data shard's tokens into its groups' buffer, runs its E/ep
+    experts on its slice of the buffer, and the model axis all-gathers
+    the experts' outputs for the combine; the aux statistics are
+    ``psum``-averaged over the data shards."""
+    batch_axes, dp, ep = layers._mesh_dims(mesh)
+    E = cfg.padded_experts
+    E_l = E // ep
+    B, S, D = x.shape
+    sharded = bool(batch_axes) and B % dp == 0
+    n = dp if sharded else 1
+    G = shd.moe_groups()
+    G_l = G // n if G % n == 0 and (B * S // n) % max(G // n, 1) == 0 else 1
+    G_l = max(G_l, 1)
+    dt = x.dtype
+
+    def body(x_l, router, wg, wu, wd):
+        Bl = x_l.shape[0]
+        xg = x_l.reshape(G_l, Bl * S // G_l, D)
+        own = spmd.axis_index(shd.MODEL_AXIS) * E_l + torch.arange(E_l, device=x_l.device)
+
+        def experts(buf):
+            b = buf.index_select(1, own)
+            gh = torch.einsum("gecd,edf->gecf", b, wg.to(dt))
+            uh = torch.einsum("gecd,edf->gecf", b, wu.to(dt))
+            y = torch.einsum("gecf,efd->gecd", F.silu(gh) * uh, wd.to(dt))
+            return spmd.all_gather(y, shd.MODEL_AXIS, dim=1, tiled=True)
+
+        out, (me, ce, z) = _dispatch_combine(router, xg, cfg, experts)
+        if sharded:
+            me = spmd.psum(me, batch_axes) / n
+            ce = spmd.psum(ce, batch_axes) / n
+        aux = cfg.n_experts * torch.sum(me * ce) + z * 1e-4
+        return out.reshape(Bl, S, D), aux
+
+    x_spec = spmd.P(batch_axes if sharded else None, None, None)
+    w_spec = spmd.P(shd.MODEL_AXIS, None, None)
+    out, aux = spmd.shard_map(
+        body, mesh, (x_spec, spmd.P(None, None), w_spec, w_spec, w_spec),
+        (x_spec, spmd.P()),
+    )(x, params["router"], params["w_gate"], params["w_up"], params["w_down"])
     if cfg.n_shared_experts:
         out = out + layers.swiglu(params["shared"], x)
     return out, aux

@@ -22,7 +22,9 @@ from torch import nn
 
 from repro_torch.models import layers, loops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import layer_barrier
+from repro_torch.models.sharding import (decode_layer, layer_barrier, logits_sharded,
+                                         merge_heads, proj, residual, split_heads,
+                                         unshard)
 from repro_torch.models.params import (
     ParamDef,
     Schema,
@@ -200,15 +202,15 @@ def timemix(params, x, cfg: ModelConfig, state=None, x_prev=None,
     xv = _lerp(x, x_prev, params["mu_v"].to(dt))
     xw = _lerp(x, x_prev, params["mu_w"].to(dt))
     xg = _lerp(x, x_prev, params["mu_g"].to(dt))
-    r = (xr @ params["w_r"].to(dt)).reshape(B, S, H, N).to(f32)
-    k = (xk @ params["w_k"].to(dt)).reshape(B, S, H, N).to(f32)
-    v = (xv @ params["w_v"].to(dt)).reshape(B, S, H, N).to(f32)
-    g = F.silu(xg @ params["w_g"].to(dt))
+    r = split_heads(proj(xr, params["w_r"].to(dt)), H, N).to(f32)
+    k = split_heads(proj(xk, params["w_k"].to(dt)), H, N).to(f32)
+    v = split_heads(proj(xv, params["w_v"].to(dt)), H, N).to(f32)
+    g = F.silu(proj(xg, params["w_g"].to(dt)))
     # data-dependent decay in (0, 1)
-    wdec = params["w0"].to(f32) + torch.tanh(
-        xw.to(f32) @ params["wA"].to(f32)) @ params["wB"].to(f32)
-    w = torch.exp(-torch.exp(wdec)).reshape(B, S, H, N)
-    u = params["u"].to(f32).reshape(H, N)
+    wdec = params["w0"].to(f32) + proj(torch.tanh(
+        proj(xw.to(f32), params["wA"].to(f32))), params["wB"].to(f32))
+    w = split_heads(torch.exp(-torch.exp(wdec)), H, N)
+    u = split_heads(params["u"].to(f32), H, N)
     if state is None and use_kernel:
         from repro_torch.kernels import ops as kops
 
@@ -216,14 +218,15 @@ def timemix(params, x, cfg: ModelConfig, state=None, x_prev=None,
     else:
         if state is None:
             state = torch.zeros((B, H, N, N), dtype=f32, device=x.device)
+        r, k, v, w = (unshard(t, 1) for t in (r, k, v, w))
         if WKV_IMPL in ("chunked", "auto") and S % 64 == 0 and S > 64:
             y, state = wkv6_chunked(r, k, v, w, u, state)
         else:
             y, state = wkv6_scan(r, k, v, w, u, state)
-    y = y.reshape(B, S, D).to(dt)
+    y = merge_heads(y).to(dt)
     # per-head group norm (approximated by rms over head dim groups)
     y = layers.rmsnorm({"scale": params["ln_scale"]}, y, cfg.norm_eps)
-    out = (y * g) @ params["w_o"].to(dt)
+    out = proj(y * g, params["w_o"].to(dt))
     return out, state, x[:, -1]
 
 
@@ -233,9 +236,9 @@ def channelmix(params, x, cfg: ModelConfig, x_prev=None):
         x_prev = _shift(x)
     xr = _lerp(x, x_prev, params["mu_r"].to(dt))
     xk = _lerp(x, x_prev, params["mu_k"].to(dt))
-    r = torch.sigmoid(xr @ params["w_r"].to(dt))
-    k = torch.square(torch.relu(xk @ params["w_k"].to(dt)))
-    return r * (k @ params["w_v"].to(dt)), x[:, -1]
+    r = torch.sigmoid(proj(xr, params["w_r"].to(dt)))
+    k = torch.square(torch.relu(proj(xk, params["w_k"].to(dt))))
+    return r * proj(k, params["w_v"].to(dt)), x[:, -1]
 
 
 def block_apply(p, x, cfg: ModelConfig, use_kernel: bool = False):
@@ -254,6 +257,10 @@ class RWKV6LM(nn.Module):
     """The RWKV-6 LM; parameters are passed to every call, as in the
     reference."""
 
+    # decode_step never reads its position (the state carries it), so the
+    # reference's jit drops that argument (launch/steps.py::make_cell).
+    decode_reads_pos = False
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -266,20 +273,21 @@ class RWKV6LM(nn.Module):
     # ------------------------------------------------------------- forward
     def hidden_states(self, params, tokens, *, use_kernel=False, remat=True):
         cfg = self.cfg
-        x = layers.embed(params["embed"], tokens, _dtype(cfg))
+        x = residual(layers.embed(params["embed"], tokens, _dtype(cfg)))
         for p in unstack(params["layers"]):
-            x = remat_apply(block_apply, remat, layer_barrier(p), x, cfg, use_kernel)
+            x = residual(remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
+                                     use_kernel))
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
     def logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                     remat=remat)
-        return layers.unembed({"table": params["lm_head"]}, x), aux
+        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x)), aux
 
     def last_logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                   remat=remat)
-        return layers.unembed({"table": params["lm_head"]}, x[:, -1:])
+        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x[:, -1:]))
 
     def loss(self, params, batch, *, use_kernel=False, remat=True):
         logits, _ = self.logits(params, batch["inputs"], use_kernel=use_kernel,
@@ -309,7 +317,7 @@ class RWKV6LM(nn.Module):
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens, _dtype(cfg))    # (B,1,D)
         for i in range(cfg.n_layers):
-            p = layer(params["layers"], i)
+            p = decode_layer(layer(params["layers"], i), x)
             c = layer(cache, i)
             h = layers.rmsnorm(p["tm_norm"], x, cfg.norm_eps)
             out, wkv, tm_new = timemix(p["tm"], h, cfg, state=c["wkv"],

@@ -29,7 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import layer_barrier
+from repro_torch.models.sharding import (BATCH_AXES, constrain, decode_layer, layer_barrier,
+                                         logits_sharded, merge_heads, proj, residual,
+                                         split_heads)
 from repro_torch.models.params import (
     ParamDef,
     Schema,
@@ -129,32 +131,30 @@ def model_schema(cfg: ModelConfig) -> Schema:
 # ---------------------------------------------------------------- attention
 def _qkv(params, x, cfg: ModelConfig, positions):
     """Projected, biased and rotated q (B,S,H,hd) and k (B,S,Kv,hd), and v."""
-    B, S, _ = x.shape
     dt = x.dtype
     hd = cfg.resolved_head_dim
-    q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    q = proj(x, params["wq"].to(dt))
+    k = proj(x, params["wk"].to(dt))
+    v = proj(x, params["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = layers.apply_rope(q.reshape(B, S, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = layers.apply_rope(k.reshape(B, S, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = layers.apply_rope(split_heads(q, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = layers.apply_rope(split_heads(k, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    return q, k, split_heads(v, cfg.n_kv_heads, hd)
 
 
 def _mla_q_latent(params, x, cfg: ModelConfig, positions):
     """MLA's query (B,S,H,nope+rope), its rope part rotated, and the new
     latents: the normed c_kv (B,S,rank) and the rotated shared k_rope head
     (B,S,1,rope)."""
-    B, S, _ = x.shape
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(
-        B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = split_heads(proj(x, params["wq"].to(dt)), cfg.n_heads,
+                    cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     q = torch.cat([q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
-    c_kv, k_rope = torch.split(x @ params["w_dkv"].to(dt),
+    c_kv, k_rope = torch.split(proj(x, params["w_dkv"].to(dt)),
                                [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     c_kv = layers.rmsnorm({"scale": params["kv_norm"]}, c_kv, cfg.norm_eps)
     k_rope = layers.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -166,8 +166,8 @@ def _mla_kv(params, c_kv, k_rope, cfg: ModelConfig):
     (B,C,rank) and the shared k_rope head (B,C,1,rope)."""
     B, C, _ = c_kv.shape
     H, dt = cfg.n_heads, c_kv.dtype
-    k_nope = (c_kv @ params["w_uk"].to(dt)).reshape(B, C, H, cfg.qk_nope_dim)
-    v = (c_kv @ params["w_uv"].to(dt)).reshape(B, C, H, cfg.v_head_dim)
+    k_nope = split_heads(proj(c_kv, params["w_uk"].to(dt)), H, cfg.qk_nope_dim)
+    v = split_heads(proj(c_kv, params["w_uv"].to(dt)), H, cfg.v_head_dim)
     k = torch.cat([k_nope, k_rope.expand(B, C, H, cfg.qk_rope_dim)], dim=-1)
     return k, v
 
@@ -177,7 +177,6 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def attention_block(params, x, cfg: ModelConfig, positions, use_kernel=False):
-    B, S, _ = x.shape
     if cfg.use_mla:
         if use_kernel:
             raise ValueError(
@@ -191,13 +190,12 @@ def attention_block(params, x, cfg: ModelConfig, positions, use_kernel=False):
         k, v = _mla_kv(params, c_kv, k_rope, cfg)
         out = layers.attention(q, k, v, window=cfg.sliding_window,
                                scale=_mla_scale(cfg))
-        out = out.reshape(B, S, cfg.n_heads * cfg.v_head_dim)
-        return out @ params["wo"].to(x.dtype)
+        return proj(merge_heads(out), params["wo"].to(x.dtype))
     q, k, v = _qkv(params, x, cfg, positions)
     out = layers.attention(q, k, v, window=cfg.sliding_window,
                            use_kernel=use_kernel)
-    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    return out @ params["wo"].to(x.dtype)
+    out = constrain(merge_heads(out), BATCH_AXES, None, "model")
+    return proj(out, params["wo"].to(x.dtype))
 
 
 def _ffn(params, h, cfg: ModelConfig):
@@ -210,10 +208,10 @@ def _ffn(params, h, cfg: ModelConfig):
 def block_apply(params, x, cfg: ModelConfig, positions, use_kernel: bool = False):
     """One block: attention, then the dense or MoE FFN -> (x, aux)."""
     h = layers.rmsnorm(params["attn_norm"], x, cfg.norm_eps)
-    x = x + attention_block(params["attn"], h, cfg, positions, use_kernel)
+    x = residual(x + attention_block(params["attn"], h, cfg, positions, use_kernel))
     h = layers.rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
     y, aux = _ffn(params, h, cfg)
-    return x + y, aux
+    return residual(x + y), aux
 
 
 def remat_apply(fn, remat: bool, *args):
@@ -269,6 +267,7 @@ class DecoderLM(nn.Module):
             x = inputs.to(dt)
         else:
             x = layers.embed(params["embed"], inputs, dt)
+        x = residual(x)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         aux_total = 0.0
@@ -284,21 +283,20 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         logits = layers.unembed({"table": _head_table(params)}, x)
         if cfg.num_codebooks > 1:
-            B, S, _ = logits.shape
-            logits = logits.reshape(B, S, cfg.num_codebooks, cfg.padded_vocab)
+            logits = split_heads(logits, cfg.num_codebooks, cfg.padded_vocab)
         return logits
 
     def logits(self, params, inputs, *, use_kernel=False, remat=True):
         x, aux = self.hidden_states(params, inputs, use_kernel=use_kernel,
                                     remat=remat)
-        return self._unembed(params, x), aux
+        return logits_sharded(self._unembed(params, x)), aux
 
     def last_logits(self, params, inputs, *, use_kernel=False, remat=True):
         """Prefill entry point: logits at the LAST position only — the full
         (B, S, V) prefill logit tensor is never materialized."""
         x, _ = self.hidden_states(params, inputs, use_kernel=use_kernel,
                                   remat=remat)
-        return self._unembed(params, x[:, -1:])
+        return logits_sharded(self._unembed(params, x[:, -1:]))
 
     def loss(self, params, batch, *, use_kernel=False, remat=True):
         """batch: {"inputs": ids|embeds, "labels": (B,S[,n_codebooks])}."""
@@ -339,6 +337,7 @@ class DecoderLM(nn.Module):
         C = next(iter(cache.values())).shape[2]
         slot = pos % C if cfg.sliding_window > 0 else min(pos, C - 1)
         for i, p in enumerate(self._blocks(params)):
+            p = decode_layer(p, x)
             h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
             attn_out = self._decode_attention(
                 p["attn"], h, cfg, positions, pos, slot, layer(cache, i))
@@ -349,7 +348,6 @@ class DecoderLM(nn.Module):
         return self._unembed(params, x), cache
 
     def _decode_attention(self, params, x, cfg, positions, pos, slot, cache):
-        B = x.shape[0]
         if cfg.use_mla:
             q, c_kv, k_rope = _mla_q_latent(params, x, cfg, positions)
             ckv_cache = _cache_update(cache["ckv"], c_kv[:, 0], slot)
@@ -358,12 +356,10 @@ class DecoderLM(nn.Module):
             k, v = _mla_kv(params, ckv_cache, kr_cache[:, :, None, :], cfg)
             out = layers.decode_attention(q, k, v, pos, window=cfg.sliding_window,
                                           scale=_mla_scale(cfg))
-            out = out.reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
-            return out @ params["wo"].to(x.dtype)
+            return proj(merge_heads(out), params["wo"].to(x.dtype))
         q, k, v = _qkv(params, x, cfg, positions)
         k_cache = _cache_update(cache["k"], k[:, 0], slot)
         v_cache = _cache_update(cache["v"], v[:, 0], slot)
         out = layers.decode_attention(q, k_cache, v_cache, pos,
                                       window=cfg.sliding_window)
-        out = out.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim)
-        return out @ params["wo"].to(x.dtype)
+        return proj(merge_heads(out), params["wo"].to(x.dtype))

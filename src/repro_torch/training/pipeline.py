@@ -18,11 +18,13 @@ the bubble's ticks included: T = M + S - 1 ticks. Bubble fraction =
 ppermute's indexing is the reverse permute), giving a correct (GPipe,
 all-microbatch-stash) backward.
 
-The body sees every rank's block at once (the mesh dims lead), so
-``layer_fn`` — which applies ONE layer to one rank's block, as in the
-reference — runs under ``torch.func.vmap`` over the mesh dims: each
-stage applies its own layer to its own activation, all stages in one
-call. The tick loop's indices are Python ints; only "which stage am I"
+On virtual ranks the body sees every rank's block at once (the mesh
+dims lead), so ``layer_fn`` — which applies ONE layer to one rank's
+block, as in the reference — runs under ``torch.func.vmap`` over the
+mesh dims: each stage applies its own layer to its own activation, all
+stages in one call. On a process group (``core/world.py``) the body sees
+its own block and calls ``layer_fn`` as it is (``spmd.lead_dims()`` is
+0). The tick loop's indices are Python ints; only "which stage am I"
 is a per-rank tensor (``spmd.axis_index``), applied through
 ``spmd.where``.
 """
@@ -76,39 +78,40 @@ def pipelined_apply(
     pod axis (each stage uses only its schedule slice).
     """
     n_stages = mesh.axis_size(pod_axis)
-    rank_fn = layer_fn
-    for _ in range(mesh.ndim):                 # one vmap a mesh dim
-        rank_fn = torch.func.vmap(rank_fn)
 
-    def stage_apply(local, x):
-        # local: (*mesh, L/S, ...) leaves; x: (*mesh, Bm, ...)
-        n_layers = tree_leaves(local)[0].shape[mesh.ndim]
+    def stage_apply(rank_fn, L, local, x):
+        # local: (*lead, L/S, ...) leaves; x: (*lead, Bm, ...)
+        n_layers = tree_leaves(local)[0].shape[L]
         for i in range(n_layers):
-            x = rank_fn(tree_map(lambda p: p.select(mesh.ndim, i), local), x)
+            x = rank_fn(tree_map(lambda p: p.select(L, i), local), x)
         return x
 
     def run(like):
         def body(*args):
             *leaves, x_all = args
-            # leaves: (*mesh, 1, L/S, ...) local slices; x_all: (*mesh, M, Bm, ...)
-            local = _unflatten(like, [p.select(mesh.ndim, 0) for p in leaves])
+            L = spmd.lead_dims()               # leading mesh dims of a block
+            rank_fn = layer_fn
+            for _ in range(L):                 # one vmap a mesh dim
+                rank_fn = torch.func.vmap(rank_fn)
+            # leaves: (*lead, 1, L/S, ...) local slices; x_all: (*lead, M, Bm, ...)
+            local = _unflatten(like, [p.select(L, 0) for p in leaves])
             stage = spmd.axis_index(pod_axis)
-            M = x_all.shape[mesh.ndim]
+            M = x_all.shape[L]
             first, last = stage == 0, stage == n_stages - 1
-            carry = torch.zeros_like(x_all.select(mesh.ndim, 0))
+            carry = torch.zeros_like(x_all.select(L, 0))
             outputs = [None] * M
             for t in range(M + n_stages - 1):
                 # stage 0 ingests microbatch t (when valid); the others take
                 # the activation handed over at the previous tick.
-                feed = spmd.where(first, x_all.select(mesh.ndim, min(t, M - 1)), carry)
-                out = stage_apply(local, feed)
+                feed = spmd.where(first, x_all.select(L, min(t, M - 1)), carry)
+                out = stage_apply(rank_fn, L, local, feed)
                 # hand to the next stage (ring; the wraparound is never read)
                 carry = spmd.ppermute(
                     out, pod_axis, [(i, (i + 1) % n_stages) for i in range(n_stages)])
                 # the last stage emits microbatch t - (S-1) at tick t
                 if t >= n_stages - 1:
                     outputs[t - (n_stages - 1)] = out
-            y = torch.stack(outputs, mesh.ndim)
+            y = torch.stack(outputs, L)
             # Make the result identical on every pod (the last stage owns it).
             return spmd.psum(spmd.where(last, y, torch.zeros_like(y)), pod_axis)
 

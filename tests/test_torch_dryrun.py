@@ -283,9 +283,15 @@ def test_cli_meta_single_cell(tmp_path):
 
 
 def test_cli_refuses_what_it_cannot_do():
+    """No card without one; a production mesh counts (``--mesh single``);
+    an unknown mesh, and the mesh's switches without a mesh, are refused."""
     if not torch.cuda.is_available():
         proc = _cli("--arch", "smollm-135m", "--shape", "train_4k")
         assert proc.returncode != 0 and "needs an NVIDIA GPU" in proc.stderr
-    for flags in (("--mesh", "single"), ("--mode", "tp"), ("--no-seq-shard",)):
+    proc = _cli("--arch", "smollm-135m", "--shape", "decode_32k", "--device", "meta",
+                "--mesh", "single")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "1 ok, 0 skipped, 0 errors" in proc.stdout
+    for flags in (("--mesh", "triple"), ("--mode", "tp"), ("--no-seq-shard",)):
         proc = _cli("--arch", "smollm-135m", "--shape", "train_4k", "--device", "meta", *flags)
         assert proc.returncode != 0 and "mesh" in proc.stderr

@@ -57,7 +57,7 @@ LM_MODULES = [
     "repro_torch.models.loops", "repro_torch.launch.knobs", "repro_torch.launch.specs",
     "repro_torch.launch.roofline", "repro_torch.launch.flops", "repro_torch.launch.dryrun",
     "repro_torch.launch.mesh", "repro_torch.launch.policy", "repro_torch.training.pipeline",
-    "repro_torch.core.spmd",
+    "repro_torch.core.spmd", "repro_torch.core.world",
 ]
 
 

@@ -1,0 +1,383 @@
+"""The process-group backend of ``core/spmd.py`` against its virtual ranks.
+
+A gloo world of 4 CPU processes (one rank each, spawned once, 120 s
+limit) runs every collective of ``spmd``, ``sp_attention``,
+``sp_decode_attention``, ``_moe_shard_map`` and the pipeline's forward
+on DTensors over a ``(data=2, model=2)`` and a ``(pod=2, data=2)`` mesh
+laid out in a Mapple mapper's device order, and the same on the virtual
+ranks of one tensor in each process; the same seeded numpy inputs go
+into both. Each rank reports the largest difference of each output
+(gathered with ``full_tensor``) over the output's largest |entry|, and
+that the path ran (``spmd.counts()``); the tests hold each within 1e-5
+(fp32). Also: a fake group of 256 ranks gives each spec's local shape
+on the meta device, the refused world kinds, and bit-identical model
+outputs on plain tensors with and without the constraint call sites.
+"""
+import dataclasses
+import importlib
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import spmd, world  # noqa: E402
+from repro_torch.core.spmd import P  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch import policy  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models import sharding as shd  # noqa: E402
+
+REL_TOL = 1e-5
+N_RANKS = 4
+
+
+def _mapple_ids(shape):
+    """A cyclic Mapple mapper's device order for a 2x2 grid of tiles."""
+    from repro_torch.core import GPU, Machine, cyclic_mapper
+
+    perm = tmesh.mapper_permutation(cyclic_mapper(Machine(GPU, shape=(2, 2))), (2, 2))
+    return np.asarray(perm).reshape(shape)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+# --------------------------------------------------------------- the worker
+def _cases(mesh_v, mesh_pg):
+    """(name, fn(mesh) -> output tensor or tuple of them) for one mesh pair;
+    each fn runs the same seeded numbers on either backend."""
+    names = mesh_v.axis_names
+    a0, a1 = names
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 6, 8)).astype(np.float32))
+    spec = P(a0, a1, None)
+
+    def coll(body, out_spec=spec, grad=False):
+        def run(mesh):
+            xs = x.clone().requires_grad_(grad)
+            y = spmd.shard_map(body, mesh, (spec,), out_spec)(xs)
+            if not grad:
+                return (y,)
+            w = torch.from_numpy(np.random.default_rng(1).normal(
+                size=tuple(y.shape)).astype(np.float32))
+            (g,) = torch.autograd.grad((_full(y) * w).sum(), xs)
+            return y, g
+        return run
+
+    cases = [
+        ("all_gather", coll(lambda b: spmd.all_gather(b, a1, dim=1),
+                            P(a0, None, None), grad=True)),
+        ("all_gather_last", coll(lambda b: spmd.all_gather(b, a0, dim=-1),
+                                 P(None, a1, a0), grad=True)),
+        ("psum", coll(lambda b: spmd.psum(b, a1), grad=True)),
+        ("psum_both", coll(lambda b: spmd.psum(b, (a0, a1)), grad=True)),
+        ("pmax", coll(lambda b: spmd.pmax(b, (a0, a1)))),
+        ("psum_scatter", coll(lambda b: spmd.psum_scatter(b, a1, 2),
+                              P(a0, None, a1), grad=True)),
+        ("all_to_all", coll(lambda b: spmd.all_to_all(
+            b.reshape(b.shape[:-3] + (3, 2, 8)).transpose(-3, -2), a1, -3, -1),
+            P(a0, None, a1), grad=True)),
+        ("ppermute", coll(lambda b: spmd.ppermute(b, a0, [(0, 1), (1, 0)]), grad=True)),
+        ("ppermute_partial", coll(lambda b: spmd.ppermute(b, a1, [(0, 1)]), grad=True)),
+        ("axis_index_where", coll(lambda b: spmd.where(
+            spmd.axis_index(a1) == 1, b, 2 * b))),
+    ]
+    if "model" in names:
+        cases += _model_cases()
+    else:
+        cases += [("pipeline", _pipeline_case())]
+    return cases
+
+
+def _attention_inputs():
+    rng = np.random.default_rng(2)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    return t(2, 256, 4, 16), t(2, 256, 2, 16), t(2, 256, 2, 16)
+
+
+def _model_cases():
+    from repro_torch.models import layers, moe
+    from repro_torch.models.params import layer
+
+    def sp_attention(mesh):
+        q, k, v = _attention_inputs()
+        with spmd.use_mesh(mesh):
+            return (layers.sp_attention(q, k, v, window=96),)
+
+    def sp_decode(mesh):
+        rng = np.random.default_rng(3)
+        t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+        q, kc, vc = t(2, 1, 4, 16), t(2, 64, 1, 16), t(2, 64, 1, 16)
+        with spmd.use_mesh(mesh):
+            return (layers.sp_decode_attention(q, kc, vc, 40),
+                    layers.sp_decode_attention(q, kc, vc, 70, window=64))
+
+    def moe_case(mesh):
+        cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(), dtype="float32")
+        model = build(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        p = layer(params["moe_layers"], 0)["moe"]
+        x = torch.from_numpy(np.random.default_rng(4).normal(
+            size=(2, 32, cfg.d_model)).astype(np.float32))
+        routed = []
+        real_route = moe.route
+
+        def route(prm, xg, c):
+            out = real_route(prm, xg, c)
+            routed.append(out[3])
+            return out
+
+        saved = moe.CAPACITY_FACTOR
+        moe.CAPACITY_FACTOR, moe.route = 16.0, route
+        try:
+            out, aux = moe._moe_shard_map(p, x, cfg, mesh, ("data",), 2, 2)
+        finally:
+            moe.CAPACITY_FACTOR, moe.route = saved, real_route
+        return out, aux, routed[0]
+
+    return [("sp_attention", sp_attention), ("sp_decode_attention", sp_decode),
+            ("moe_shard_map", moe_case)]
+
+
+def _pipeline_case():
+    from repro_torch.training.pipeline import pipelined_apply, split_stages
+
+    def layer(p, h):
+        return h + torch.tanh(h @ p["w"])
+
+    def run(mesh):
+        rng = np.random.default_rng(5)
+        W = torch.from_numpy(rng.normal(scale=0.3, size=(4, 8, 8)).astype(np.float32))
+        x = torch.from_numpy(rng.normal(size=(3, 2, 8)).astype(np.float32))
+        y = pipelined_apply(layer, mesh, n_microbatches=3)(split_stages({"w": W}, 2), x)
+        return (y,)
+
+    return run
+
+
+def _worker(rank: int, port: int, out_dir: str) -> None:
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    torch.set_num_threads(1)
+    report = {}
+    with world.world("gloo", N_RANKS, rank=rank, address=f"tcp://127.0.0.1:{port}"):
+        for shape, names in (((2, 2), ("data", "model")), ((2, 2), ("pod", "data"))):
+            mesh_v = spmd.Mesh(_mapple_ids(shape), names, "cpu")
+            mesh_pg = world.on_world(mesh_v, "cpu")
+            for name, fn in _cases(mesh_v, mesh_pg):
+                key = f"{'x'.join(names)}/{name}"
+                want = fn(mesh_v)
+                spmd.reset_counts()
+                with implicit_replication():      # a plain input is the same everywhere
+                    got = fn(mesh_pg)
+                ran = spmd.counts()
+                if name == "moe_shard_map":
+                    # routing first: this rank's group is row-major group `rank`
+                    report[key + "/routing_equal"] = bool(torch.equal(
+                        got[2][0], want[2][rank]))
+                    got, want = got[:2], want[:2]
+                report[key] = max(_rel(_full(g), _full(w)) for g, w in zip(got, want))
+                report[key + "/ran"] = ran
+                report[key + "/local"] = [list(getattr(g, "_local_tensor", g).shape)
+                                          for g in got]
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def _spawn(port: int, out_dir: str) -> None:
+    import torch.multiprocessing as mp
+
+    mp.spawn(_worker, args=(port, out_dir), nprocs=N_RANKS, join=True)
+
+
+@pytest.fixture(scope="module")
+def gloo(tmp_path_factory):
+    out = tmp_path_factory.mktemp("gloo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, __file__, str(port), str(out)],
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(N_RANKS)]
+
+
+COLLECTIVES = ["all_gather", "all_gather_last", "psum", "psum_both", "pmax",
+               "psum_scatter", "all_to_all", "ppermute", "ppermute_partial",
+               "axis_index_where"]
+
+
+@pytest.mark.parametrize("mesh", ["dataxmodel", "podxdata"])
+@pytest.mark.parametrize("name", COLLECTIVES)
+def test_collective_matches_virtual_ranks(gloo, mesh, name):
+    """Values (and, where the collective has one, the input gradient of
+    a weighted sum) on every rank, within 1e-5 of the largest |entry|."""
+    key = f"{mesh}/{name}"
+    for rank, report in enumerate(gloo):
+        assert report[key] <= REL_TOL, (rank, key, report[key])
+        op = {"axis_index_where": "shard_map"}.get(name, name.split("_partial")[0]
+                                                   .split("_last")[0].split("_both")[0])
+        assert report[key + "/ran"].get(op, 0) >= 1, (key, report[key + "/ran"])
+
+
+@pytest.mark.parametrize("name", ["sp_attention", "sp_decode_attention", "moe_shard_map"])
+def test_mesh_path_matches_virtual_ranks(gloo, name):
+    key = f"dataxmodel/{name}"
+    for rank, report in enumerate(gloo):
+        assert report[key] <= REL_TOL, (rank, key, report[key])
+        assert report[key + "/ran"].get(name, 0) >= 1, (key, report[key + "/ran"])
+        if name == "moe_shard_map":
+            assert report[key + "/routing_equal"], rank
+            assert report[key + "/ran"]["all_to_all"] == 2
+
+
+def test_sp_attention_runs_on_local_blocks(gloo):
+    """Each rank's q block is its quarter: (B/2, S/2, H, hd)."""
+    for report in gloo:
+        assert report["dataxmodel/sp_attention/local"] == [[1, 128, 4, 16]]
+
+
+def test_pipeline_forward_matches_virtual_ranks(gloo):
+    for rank, report in enumerate(gloo):
+        assert report["podxdata/pipeline"] <= REL_TOL, (rank, report["podxdata/pipeline"])
+        assert report["podxdata/pipeline/ran"]["ppermute"] == 3 + 2 - 1
+
+
+# ------------------------------------------------------------- fake group
+SPECS = [P(("data", "model")), P("data", None), P(None, "model"), P(),
+         P(("pod", "data"), "model")]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_fake_group_meta_round_trip_gives_each_specs_local_shape(multi):
+    base = tmesh.make_production_mesh(multi_pod=multi, device="meta")
+    with world.world("fake", int(base.device_ids.size), rank=world.ORIGIN_RANK):
+        mesh = world.on_world(base, "meta", device_type="cuda")
+        assert list(mesh.dist.get_coordinate()) == [0] * mesh.ndim
+        for spec in SPECS:
+            sh = policy.shard(mesh, spec)
+            x = torch.empty(512, 96, device="meta")
+            d = sh.distribute(x)
+            want = list(x.shape)
+            for dim, e in enumerate(tuple(sh.spec) + (None,) * 2):
+                for a in spmd._names(e):
+                    want[dim] //= mesh.axis_size(a)
+            assert list(d.to_local().shape) == want, (spec, d.placements)
+            assert d.to_local().device.type == "meta" and tuple(d.shape) == (512, 96)
+            assert tuple(d.placements) == tuple(sh.placements(2))
+
+
+def test_world_refuses_nccl_and_a_second_world():
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        with world.world("nccl", 2):
+            pass
+    with world.world("fake", 4):
+        with pytest.raises(RuntimeError, match="already"):
+            with world.world("fake", 4):
+                pass
+    with pytest.raises(ValueError, match="needs the address"):
+        with world.world("gloo", 2):
+            pass
+
+
+def test_placements_split_an_entry_over_several_axes_major_first():
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = tmesh.make_production_mesh(multi_pod=True, device="meta")
+    assert spmd.placements(P(("pod", "data"), "model"), mesh, 2) == [
+        Shard(0), Shard(0), Shard(1)]
+    assert spmd.placements(P(None, "data"), mesh, 3) == [Replicate(), Shard(1), Replicate()]
+    with pytest.raises(ValueError, match="order"):
+        spmd.placements(P(("data", "pod")), mesh, 1)
+
+
+# ------------------------------------------- constraint call sites, plain
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-moe-a2.7b", "hymba-1.5b",
+                                  "rwkv6-3b", "musicgen-medium"])
+def test_constraint_call_sites_leave_plain_outputs_bit_identical(arch, monkeypatch):
+    """Logits and the loss on plain tensors, with a virtual (2, 2) mesh in
+    scope and without, equal those with the four constraints and the
+    head splits replaced by the identity and a plain reshape."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    shape = (2, 32, cfg.d_model) if cfg.stub_frontend else (2, 32)
+    inputs = (torch.randn(shape, generator=g) if cfg.stub_frontend
+              else torch.randint(0, cfg.vocab_size, shape, generator=g))
+
+    def outputs():
+        outs = []
+        for mesh in (None, tmesh.small_mesh(shape=(2, 2), device="cpu")):
+            with spmd.use_mesh(mesh):
+                logits, _ = model.logits(params, inputs, remat=False)
+                outs.append(logits)
+        return outs
+
+    with_sites = outputs()
+    ident = lambda x, *a, **k: x  # noqa: E731
+    for mod in ("transformer", "hymba", "rwkv6"):
+        m = importlib.import_module(f"repro_torch.models.{mod}")
+        for name in ("constrain", "residual", "logits_sharded", "unshard"):
+            if hasattr(m, name):
+                monkeypatch.setattr(m, name, ident)
+        if hasattr(m, "split_heads"):
+            monkeypatch.setattr(m, "split_heads",
+                                lambda x, n, d: x.reshape(*x.shape[:-1], n, d))
+        if hasattr(m, "merge_heads"):
+            monkeypatch.setattr(m, "merge_heads",
+                                lambda x: x.reshape(*x.shape[:-2], -1))
+    monkeypatch.setattr(shd, "constrain", ident)
+    without = outputs()
+    for a, b in zip(with_sites, without):
+        assert torch.equal(a, b)
+
+
+if __name__ == "__main__":
+    _spawn(int(sys.argv[1]), sys.argv[2])
+
+
+def test_count_books_each_collective_of_a_body_by_kind():
+    """On a fake group of 4, one rank's count of a body that runs each
+    collective once books its output bytes under the reference's kind:
+    a ppermute is a collective-permute, an all_to_all an all-to-all."""
+    from repro_torch.launch import flops
+
+    base = spmd.Mesh(np.arange(4).reshape(2, 2), ("data", "model"), "meta")
+
+    def body(b):                                    # b: (2, 4, 8) fp32 = 256 bytes
+        y = spmd.all_gather(b, "model", dim=1)      # 512
+        y = spmd.psum(y, "data")                    # 512
+        y = spmd.psum_scatter(y, "model", 1)        # 256
+        y = spmd.all_to_all(y, "model", 0, 0)       # 256
+        return spmd.ppermute(y, "data", [(0, 1), (1, 0)])   # 256
+
+    with world.world("fake", 4):
+        mesh = world.on_world(base, "meta", device_type="cuda")
+        x = torch.empty(4, 8, 8, device="meta")
+        costs = flops.count(spmd.shard_map(body, mesh, (P("data", "model"),),
+                                           P("data", "model")), x)
+    assert costs.collective_by_kind == {"all-gather": 512, "all-reduce": 512,
+                                        "reduce-scatter": 256, "all-to-all": 256,
+                                        "collective-permute": 256}
+    stats = flops.CollectiveStats.of(costs)
+    assert stats.total_bytes == 1792 and stats.count_by_kind["all-reduce"] == 1
+    assert "collective-permute" in stats.summary()
+    assert flops.dominant_ops(costs, 2)[0][1] == 512
