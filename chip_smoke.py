@@ -32,7 +32,26 @@ NVIDIA H100:
    inputs (``make_inputs(dtype=bfloat16)`` at 4096^3), counters set to 0
    just before each and read just after, each held to an fp32
    ``torch.matmul`` of the same inputs within 2e-2 of its largest |entry|
-   (``MM_BF16_APP_REL``), with each run's wall time;
+   (``MM_BF16_APP_REL``), with each run's wall time; then the nine apps
+   again with one process per mesh rank (``apps.run.run_worlds``): a gloo
+   world of 4 processes (Cannon, SUMMA, PUMMA) and one of 8 (the others),
+   every rank sharing card 0 (``--share-card``), each rank launching the
+   kernels on its own blocks, values crossing the processes through
+   ``torch.distributed`` (the all-gather staged through host memory,
+   ``spmd.STAGED``), at the registry's sizes; each app in its oracle's
+   tolerance on every rank, every rank's blocks within ``PG_VIRTUAL_REL``
+   (circuit ``PG_CIRCUIT_REL``) of the virtual-rank output's largest
+   |entry| on the same inputs, every block on ``cuda:0``, matmul and
+   stencil launches > 0 summed over the ranks (counters set to 0 just
+   before each app and read just after, in each rank); each app's wall
+   (a run's: the largest over the ranks; the median of runs 2..5,
+   ``PG_REPEATS``) beside its virtual-rank wall (the same median),
+   the staged bytes and the collectives staged; then a one-rank NCCL
+   world: the rank bound to card 0, each ``spmd`` collective and Cannon's
+   ``shard_map`` (kernel on) on a 1 x 1 mesh against the virtual ranks;
+   before it, ``apps.run --all --execute --world nccl`` and ``--world
+   gloo`` without ``--share-card`` must exit 1 naming the card and the
+   ranks; the phase must end within ``PG_BUDGET_S``;
 4. sweeps the pricer: for each app, its most balanced grid at 4096
    processors and 256 seeded random placements, priced by the torch engine
    on the card with the segment_rowmax kernel, against the NumPy engine (8
@@ -184,7 +203,8 @@ NVIDIA H100:
    autograd raising for flash, mamba_scan and wkv6 with no launch; one
    step each of hymba-1.5b and rwkv6-3b at full width and 2 layers;
 19. prints one JSON ``kernels`` line (matmul and stencil launches from the
-   execute path, the bf16 matmul row's by app from the bf16 pass,
+   execute path and the process-group apps, summed over the ranks, by
+   path; the bf16 matmul row's by app from the bf16 pass,
    segment_rowmax launches from the tune path and, by path,
    from phases 5-8, flash_attention launches summed over the hymba,
    smollm and qwen2-moe prefills, the dry run and the mesh phase's
@@ -456,6 +476,17 @@ TRAIN_CLI = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps", "12", "--batch"
              "--seq", "2048", "--save-every", "4"]
 TRAIN_FAIL_AT = 9
 TRAIN_OTHER, TRAIN_OTHER_LAYERS, TRAIN_OTHER_SHAPE = ("hymba-1.5b", "rwkv6-3b"), 2, (2, 256)
+
+
+# The process-group apps: each rank's blocks against the virtual ranks'
+# output (circuit's scatter-adds and reduce-scatter sum in another order:
+# its oracle tolerance), the one-rank NCCL world's Cannon product, and the
+# phase's budget.
+PG_VIRTUAL_REL = 1e-5
+PG_CIRCUIT_REL = 1e-3
+PG_REPEATS = 5              # runs of each app; walls are medians of runs 2..5
+PG_NCCL_MATMUL = 2048
+PG_BUDGET_S = 180.0
 
 
 def fail(msg: str) -> None:
@@ -735,6 +766,152 @@ def apps_phase() -> dict[str, int]:
     if failures:
         fail("; ".join(failures))
     return counts
+
+
+def _cpu(out):
+    return tuple(_cpu(o) for o in out) if isinstance(out, tuple) \
+        else out.detach().contiguous().cpu()
+
+
+def process_group_apps_phase(smi: str) -> dict[str, int]:
+    """The nine apps with one process per mesh rank, sharing the card over
+    gloo, against the virtual ranks; then a one-rank NCCL world. Returns
+    the matmul and stencil launches summed over the ranks."""
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.apps import run as runner
+    from repro_torch.apps import validate
+
+    t0 = time.perf_counter()
+    jobs, virtual_ms, failures = [], {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        hold_to = {}
+        for app in apps.iter_apps():
+            res = validate.run(app, device="cuda", full=True, repeats=PG_REPEATS)
+            if not res["ok"]:
+                fail(f"{app.name} virtual ranks out of tolerance ({res['max_err']})")
+            virtual_ms[app.name] = res["ms"][1:]
+            hold_to[app.name] = str(Path(tmp, f"{app.name}.pt"))
+            torch.save(_cpu(res["out"]), hold_to[app.name])
+            jobs.append((app.name, app.default_procs))
+            del res
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        worlds = runner.run_worlds(jobs, "gloo", "cuda", share_card=True, full=True,
+                                   repeats=PG_REPEATS, hold_to=hold_to,
+                                   timeout=PG_BUDGET_S)
+        worlds_s = time.perf_counter() - t1
+    print(f"process-group apps: gloo worlds of {' and '.join(map(str, sorted(worlds)))} "
+          f"processes, every rank on card 0 (--share-card), {smi}; spawn, set-up and "
+          f"runs {worlds_s:.1f} s")
+    print(f"walls: median of runs 2..{PG_REPEATS} (min-max), a process-group run's "
+          f"wall the largest over its ranks; launches and staged bytes over the "
+          f"{PG_REPEATS} runs and the check")
+    print(f"{'app':10s} {'ranks':>5s} {'max_err':>10s} {'vs virtual':>10s} "
+          f"{'pg ms':>22s} {'virtual ms':>22s} {'ratio':>7s} {'matmul':>6s} "
+          f"{'stencil':>7s} {'staged B':>10s} blocks ok")
+    launches = {"matmul": 0, "stencil": 0}
+    staged = set()
+    for name, procs in jobs:
+        r = runner.summarize(worlds[procs], name)
+        staged.update(r["staged"])
+        for k in launches:
+            launches[k] += r["launches"].get(k, 0)
+        pg, vr = r["walls_ms"][1:], virtual_ms[name]
+        v_med = statistics.median(vr)
+        print(f"{name:10s} {r['ranks']:5d} {r['max_err']:10.3e} {r['virtual_rel']:10.3e} "
+              f"{r['wall_ms']:9.3f} ({min(pg):.3f}-{max(pg):.3f}) "
+              f"{v_med:9.3f} ({min(vr):.3f}-{max(vr):.3f}) "
+              f"{r['wall_ms'] / v_med:7.2f} {r['launches'].get('matmul', 0):6d} "
+              f"{r['launches'].get('stencil', 0):7d} {r['staged_bytes']:10d} "
+              f"{','.join(r['blocks_on'])} {r['ok']}")
+        limit = PG_CIRCUIT_REL if name == "circuit" else PG_VIRTUAL_REL
+        if not r["ok"]:
+            failures.append(f"{name} out of its oracle's tolerance on a rank ({r['max_err']})")
+        if r["virtual_rel"] > limit:
+            failures.append(f"{name} {r['virtual_rel']:.3e} from the virtual ranks (> {limit})")
+        if r["blocks_on"] != ["cuda:0"]:
+            failures.append(f"{name} blocks on {r['blocks_on']}, not cuda:0")
+        if apps.get(name).kind == apps.MATMUL and not r["launches"].get("matmul"):
+            failures.append(f"{name} launched no matmul kernel on any rank")
+        if name == "stencil" and not r["launches"].get("stencil"):
+            failures.append("stencil launched no stencil kernel on any rank")
+    print(f"staged through host memory: {', '.join(sorted(staged)) or 'none'}")
+    if failures:
+        fail("process-group apps: " + "; ".join(failures))
+    for argv in (["--world", "nccl"], ["--world", "gloo"]):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = runner.main(["--all", "--execute", *argv])
+        said = err.getvalue().strip().splitlines()[-1:]
+        print(f"apps.run --all --execute {' '.join(argv)} on {torch.cuda.device_count()} "
+              f"card(s): exit {rc}: {said}")
+        if rc != 1 or "ranks" not in err.getvalue() or "wall_ms" in out.getvalue():
+            fail(f"{' '.join(argv)} on one card was not refused with the cards and ranks")
+    nccl_one_rank_phase()
+    wall = time.perf_counter() - t0
+    print(f"process-group phase: {wall:.1f} s (budget {PG_BUDGET_S} s)")
+    if wall > PG_BUDGET_S:
+        fail(f"process-group phase took {wall:.1f} s, beyond {PG_BUDGET_S} s")
+    return launches
+
+
+def nccl_one_rank_phase() -> None:
+    """A one-rank NCCL world: the rank bound to the card its mesh
+    position's id names, each spmd collective and Cannon's shard_map on a
+    1 x 1 mesh against the same on virtual ranks."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.validate import MATMUL_REL_TOL
+    from repro_torch.core import spmd, world
+    from repro_torch.core.spmd import P
+    from repro_torch.kernels import ops, ref
+    from repro_torch.matmul import ALGORITHMS
+    from repro_torch.matmul.common import MatmulGrid, make_inputs
+
+    def body(b):
+        y = spmd.all_gather(b, "y", dim=-1)
+        y = spmd.psum(y, "x") + spmd.pmax(y, ("x", "y"))
+        y = spmd.psum_scatter(y, "y", -1)
+        y = spmd.all_to_all(y.reshape(*y.shape[:-2], 1, -1), "x", -2, -2)
+        return spmd.ppermute(y.reshape(b.shape), "x", [(0, 0)])
+
+    base = spmd.Mesh(np.zeros((1, 1), np.int64), ("x", "y"), "cuda")
+    x = torch.randn(64, 96, generator=torch.Generator().manual_seed(0)).cuda()
+    a, b = make_inputs(PG_NCCL_MATMUL, PG_NCCL_MATMUL, PG_NCCL_MATMUL, seed=3,
+                       device="cuda")
+    want = spmd.shard_map(body, base, (P("x", "y"),), P("x", "y"))(x)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with world.world("nccl", 1, address=f"tcp://127.0.0.1:{port}") as w:
+        mesh = w.place(base)
+        spmd.reset_counts()
+        spmd.reset_staged()
+        got = spmd.full_tensor(spmd.shard_map(body, mesh, (P("x", "y"),), P("x", "y"))(x))
+        ops.reset_launch_counts()
+        c = ALGORITHMS["cannon"].matmul(a, b, MatmulGrid(mesh, ("x", "y")), use_kernel=True)
+        mm = ops.launch_counts()["matmul"]
+        c_full = spmd.full_tensor(c)
+        torch.cuda.synchronize()
+        ran, staged = spmd.counts(), spmd.staged_bytes()
+        local = str(c.to_local().device)
+    wall = time.perf_counter() - t0
+    expect = ref.matmul(a, b)
+    diff = float((got - want).abs().max())
+    rel = float((c_full - expect).abs().max() / expect.abs().max())
+    print(f"nccl one-rank world: rank 0 on {mesh.device} (device_ids {base.device_ids.tolist()}), "
+          f"collectives {dict(sorted(ran.items()))}, max |diff| vs virtual {diff:.3e}; "
+          f"cannon {PG_NCCL_MATMUL}^3 rel err {rel:.3e}, {mm} matmul launches, block on "
+          f"{local}; staged {staged or 'none'}; {wall:.2f} s with the group's start-up")
+    if diff > 0 or rel > MATMUL_REL_TOL or mm < 1 or local != "cuda:0" or staged:
+        fail("nccl one-rank world: the collectives or Cannon's product disagree, or a "
+             "block left card 0, or something was staged")
 
 
 def matmul_bf16_phase() -> dict[str, int]:
@@ -2916,6 +3093,14 @@ def main() -> int:
     rows["matmul"]["bfloat16"].update(launches=sum(bf16_paths.values()),
                                       launches_by_path=bf16_paths)
     steady_times()
+    torch.cuda.empty_cache()
+    pg = process_group_apps_phase(smi)
+    rows["matmul"]["launches_by_path"] = {"apps": counts["matmul"],
+                                          "process_group": pg["matmul"]}
+    rows["stencil"]["launches_by_path"] = {"apps": counts["stencil"],
+                                           "process_group": pg["stencil"]}
+    for name in pg:
+        counts[name] += pg[name]
     pricer_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as tmp:
         work = Path(tmp)

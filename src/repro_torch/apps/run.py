@@ -21,6 +21,27 @@ hand-written kernels) and checks it against its single-device oracle.
 ``--device`` defaults to ``cuda``: without a card the command stops with
 an error unless ``--device cpu`` is given.
 
+``--execute --world gloo`` (or ``nccl``) runs the same programs with one
+process per mesh rank instead, values moving between the processes
+through ``torch.distributed``: one world per processor count (4: Cannon,
+SUMMA, PUMMA; 8: the others), spawned once, each rank on the device that
+the Mapple permutation binds it to (``core/world.py``) and launching the
+kernels on its own blocks. On the CPU every rank is a CPU process:
+
+    python -m repro_torch.apps.run --all --execute --world gloo --device cpu
+
+On CUDA a world needs a card per rank; ``--share-card`` lets a gloo world
+put every rank on card 0 of a host with fewer cards (NCCL refuses two
+ranks on one card, so ``--world nccl`` needs the cards):
+
+    python -m repro_torch.apps.run --all --execute --world gloo --share-card
+
+The table adds the world, each app's wall (the largest over the ranks),
+its kernel launches summed over the ranks, and the bytes the busiest rank
+staged through host memory where gloo does not carry a collective for
+CUDA tensors. A world the host cannot give, a rank out of tolerance or a
+rank that dies exits 1.
+
 ``--tune`` runs the mapper autotuner (``repro_torch.search``) over each
 selected app's declared search space: candidates are scored with the
 app's cost model, beam-pruned, evaluated through the vectorized batch
@@ -59,6 +80,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import torch
 
@@ -138,6 +160,173 @@ def execute(selection, rows, device, report=print) -> int:
                f"{res['max_err']:10.2e} {str(res['ok']):>4s}")
         if not res["ok"]:
             failed.append(app.name)
+    if failed:
+        print(f"ERROR: numeric check failed: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _world_rank(rank: int, n: int, port: int, kind: str, device: str,
+                share_card: bool, jobs: list, out_dir: str, full: bool,
+                repeats: int, hold_to: dict) -> None:
+    """One rank of a world: each ``(app, procs)`` of ``jobs`` through
+    ``validate.run`` on this rank's bound device, counted; the report goes
+    to ``out_dir/rank<r>.json``. ``hold_to`` maps an app to a file
+    holding the virtual ranks' output, which this rank's blocks are held
+    to (the largest difference over the output's largest |entry|)."""
+    import json
+    from pathlib import Path
+
+    from repro_torch import apps
+    from repro_torch.apps import validate
+    from repro_torch.core import spmd, world
+    from repro_torch.kernels import ops
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    report = {}
+    with world.world(kind, n, rank=rank, address=f"tcp://127.0.0.1:{port}",
+                     device_type=device, share_card=share_card) as w:
+        for name, procs in jobs:
+            ops.reset_launch_counts()
+            spmd.reset_staged()
+            res = validate.run(apps.get(name), procs, device=device, full=full,
+                               repeats=repeats, world=w)
+            row = {k: res[k] for k in ("ok", "max_err", "ms", "blocks_on")}
+            row.update(launches=ops.launch_counts(), staged=spmd.staged_bytes())
+            if name in hold_to:
+                row["virtual_rel"] = _held_to(res["out"], torch.load(
+                    hold_to[name], map_location="cpu", mmap=True))
+            report[name] = row
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def _held_to(out, want) -> float:
+    """Largest |this rank's blocks - the same blocks of ``want``| over
+    ``want``'s largest |entry|, for an output or a tuple of them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(out, tuple):
+        return max(_held_to(o, w) for o, w in zip(out, want))
+    mesh = out.device_mesh
+    want = want.to(out.to_local().device)
+    block = DTensor.from_local(want, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False).redistribute(mesh, out.placements)
+    diff = (out.to_local().double() - block.to_local().double()).abs().max()
+    return float(diff) / max(float(want.abs().max()), 1e-30)
+
+
+def run_worlds(jobs, kind: str, device: str, *, share_card: bool = False,
+               full: bool = False, repeats: int = 1,
+               hold_to: dict | None = None, timeout: float = 600.0) -> dict:
+    """Run each ``(app name, procs)`` of ``jobs`` with one process per mesh
+    rank: one ``kind`` world per processor count, spawned once (``spawn``,
+    a free port), its apps run in turn. Returns ``{n: [rank reports]}``;
+    raises ``world.WorldRefused`` before spawning a world the host cannot
+    give, and ``RuntimeError`` if a rank dies or the world outlives
+    ``timeout`` seconds. The kernels are built here first, so the ranks
+    only load them."""
+    import json
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from repro_torch.core import world
+
+    groups: dict[int, list] = {}
+    for name, procs in jobs:
+        groups.setdefault(procs, []).append((name, procs))
+    for n in groups:
+        world.check(kind, n, device, share_card=share_card)
+    if device == "cuda":
+        from repro_torch.kernels import build
+
+        build.load()
+    out = {}
+    for n, group in sorted(groups.items()):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        with tempfile.TemporaryDirectory(prefix="world-") as tmp:
+            ctx = mp.start_processes(
+                _world_rank, nprocs=n, join=False, start_method="spawn",
+                args=(n, port, kind, device, share_card, group, tmp, full,
+                      repeats, dict(hold_to or {})))
+            try:
+                deadline = time.monotonic() + timeout
+                while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                    if time.monotonic() >= deadline:
+                        raise RuntimeError(f"world of {n} outlived {timeout:.0f} s")
+            except ProcessException as e:
+                raise RuntimeError(f"a rank of the world of {n} failed: {e}") from e
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+                        p.join(10)
+            out[n] = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                      for r in range(n)]
+    return out
+
+
+def summarize(reports: list[dict], name: str) -> dict:
+    """One app's rank reports -> its row: ok on every rank, the largest
+    error over the ranks, each run's wall (the largest over the ranks)
+    and their median after the first run (the only one's if one ran),
+    launches summed over the ranks, the busiest rank's staged bytes, the
+    collectives staged, the devices."""
+    import statistics
+
+    rows = [r[name] for r in reports]
+    launches: dict[str, int] = {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    walls = [max(r["ms"][i] for r in rows) for i in range(len(rows[0]["ms"]))]
+    out = {
+        "ok": all(r["ok"] for r in rows),
+        "max_err": max(r["max_err"] for r in rows),
+        "walls_ms": walls,
+        "wall_ms": statistics.median(walls[1:] or walls),
+        "launches": launches,
+        "staged_bytes": max(sum(r["staged"].values()) for r in rows),
+        "staged": sorted({k for r in rows for k in r["staged"]}),
+        "blocks_on": sorted({d for r in rows for d in r["blocks_on"]}),
+        "ranks": len(rows),
+    }
+    if all("virtual_rel" in r for r in rows):
+        out["virtual_rel"] = max(r["virtual_rel"] for r in rows)
+    return out
+
+
+def execute_world(selection, rows, device, kind: str, share_card: bool = False,
+                  report=print) -> int:
+    """``execute`` with one process per mesh rank; nonzero on a refused
+    world, a rank that dies or any rank out of tolerance."""
+    jobs = [(app.name, row["procs"]) for app, row in zip(selection, rows)]
+    try:
+        worlds = run_worlds(jobs, kind, device, share_card=share_card)
+    except RuntimeError as e:           # world.WorldRefused is one too
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    sizes = " and ".join(str(n) for n in sorted(worlds))
+    report(f"\nworld: {kind}, {sizes} processes, blocks on {device}"
+           + (", every rank on card 0 (--share-card)" if share_card else ""))
+    report(f"\n{'app':10s} {'procs':>5s} {'max_err':>10s} {'ok':>4s} "
+           f"{'world':>8s} {'wall_ms':>10s} {'launches':>8s} {'staged_B':>10s}")
+    failed, staged = [], set()
+    for name, procs in jobs:
+        res = summarize(worlds[procs], name)
+        staged.update(res["staged"])
+        report(f"{name:10s} {procs:5d} {res['max_err']:10.2e} "
+               f"{str(res['ok']):>4s} {f'{kind}/{procs}':>8s} "
+               f"{res['wall_ms']:10.3f} {sum(res['launches'].values()):8d} "
+               f"{res['staged_bytes']:10d}")
+        if not res["ok"]:
+            failed.append(name)
+    report(f"staged through host memory: {', '.join(sorted(staged)) or 'none'}")
     if failed:
         print(f"ERROR: numeric check failed: {failed}", file=sys.stderr)
         return 1
@@ -401,6 +590,15 @@ def main(argv=None) -> int:
                     help="device of --execute's meshes and of --backend "
                          "torch's pricing (default: cuda; there is no "
                          "silent fallback to the CPU)")
+    ap.add_argument("--world", choices=("virtual", "gloo", "nccl"),
+                    default="virtual",
+                    help="with --execute: virtual ranks in this process "
+                         "(default), or one process per mesh rank over a "
+                         "gloo or NCCL world, each on its bound device")
+    ap.add_argument("--share-card", action="store_true",
+                    help="with --world gloo --device cuda: let every rank "
+                         "share card 0 of a host with fewer cards than "
+                         "ranks (refused without it)")
     ap.add_argument("--list", action="store_true",
                     help="list registered applications")
     args = ap.parse_args(argv)
@@ -425,6 +623,12 @@ def main(argv=None) -> int:
                  "--execute/--show-ir")
     if args.json and not (args.tune or args.simulate):
         ap.error("--json requires --tune or --simulate")
+    if args.world != "virtual" and not args.execute:
+        ap.error("--world requires --execute")
+    if args.share_card and not (args.world == "gloo" and args.device == "cuda"):
+        ap.error("--share-card requires --world gloo --device cuda")
+    if args.world == "nccl" and args.device != "cuda":
+        ap.error("--world nccl runs on CUDA cards (--device cuda)")
 
     from repro_torch import apps
 
@@ -475,6 +679,9 @@ def main(argv=None) -> int:
         print("ERROR: non-bijective mapping produced", file=sys.stderr)
         return 1
 
+    if args.execute and args.world != "virtual":
+        return execute_world(selection, rows, args.device, args.world,
+                             share_card=args.share_card)
     if args.execute:
         return execute(selection, rows, args.device)
     return 0

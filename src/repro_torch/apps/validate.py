@@ -12,6 +12,14 @@ the card) -> matches the single-device oracle on the same device.
 Each result carries ``ms``: the wall time of each of ``repeats``
 distributed runs on the same inputs, each ending in a device synchronise;
 the last run's output is checked.
+
+With a ``world`` (``core/world.py``: one process per mesh rank) the
+plan's mesh is put on it, this rank on the device the permutation binds
+it to, and the app runs on this rank's blocks only. Each rank makes the
+same seeded inputs and the oracle's output on its own device, and
+compares the result's full tensor (gathered from every rank) with it, so
+every rank checks the whole result; ``blocks_on`` names the devices its
+blocks were on, which must be the bound one.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import time
 import torch
 
 from repro_torch.apps import definitions
+from repro_torch.core import spmd
 from repro_torch.kernels import ref
 from repro_torch.matmul.common import MatmulGrid
 
@@ -28,9 +37,10 @@ from repro_torch.matmul.common import MatmulGrid
 MATMUL_REL_TOL = 1e-4
 
 
-def _grid_for(app, procs: int, device) -> MatmulGrid:
+def _grid_for(app, procs: int, device, world=None) -> MatmulGrid:
     plan = app.spmd_plan(procs, device=device)
-    return MatmulGrid(mesh=plan.mesh, axis_names=plan.axis_names)
+    mesh = plan.mesh if world is None else world.place(plan.mesh)
+    return MatmulGrid(mesh=mesh, axis_names=plan.axis_names)
 
 
 def _sync(device) -> None:
@@ -49,15 +59,26 @@ def _timed(fn, device, repeats: int):
     return out, times
 
 
+def _local(out: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a process-group result; a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return out.to_local() if isinstance(out, DTensor) else out
+
+
 def _max_err(out: torch.Tensor, expect: torch.Tensor) -> float:
-    return float((out - expect).abs().max())
+    """Largest |out - expect|; a process-group result (a DTensor) through
+    its full tensor (``spmd.full_tensor``), which every rank gathers and
+    checks."""
+    return float((spmd.full_tensor(out) - expect).abs().max())
 
 
-def _matmul(app, procs: int, device, full: bool, repeats: int) -> dict:
+def _matmul(app, procs: int, device, full: bool, repeats: int, world) -> dict:
     from repro_torch.matmul import ALGORITHMS
     from repro_torch.matmul.common import make_inputs
 
-    grid = _grid_for(app, procs, device)
+    grid = _grid_for(app, procs, device, world)
+    device = grid.mesh.device
     if full:
         p = definitions.MATMUL_PROBLEM
         m, k, n = p.m, p.k, p.n
@@ -71,14 +92,15 @@ def _matmul(app, procs: int, device, full: bool, repeats: int) -> dict:
     expect = ref.matmul(a, b)
     err = _max_err(out, expect)
     rel = err / float(expect.abs().max())
-    return {"max_err": err, "rel_err": rel, "ms": ms,
+    return {"max_err": err, "rel_err": rel, "ms": ms, "out": out, "device": device,
             "ok": err < 1e-2 * size and rel <= MATMUL_REL_TOL}
 
 
-def _stencil(app, procs: int, device, full: bool, repeats: int) -> dict:
+def _stencil(app, procs: int, device, full: bool, repeats: int, world) -> dict:
     from repro_torch.science import stencil2d
 
-    grid = _grid_for(app, procs, device)
+    grid = _grid_for(app, procs, device, world)
+    device = grid.mesh.device
     gx, gy = grid.shape
     nx, ny = definitions.STENCIL_LENGTHS if full else (16 * gx, 16 * gy)
     cfg = stencil2d.StencilConfig(nx=nx, ny=ny, steps=2)
@@ -87,13 +109,14 @@ def _stencil(app, procs: int, device, full: bool, repeats: int) -> dict:
         / (cfg.nx * cfg.ny)
     out, ms = _timed(lambda: stencil2d.run(field, grid, cfg), device, repeats)
     err = _max_err(out, stencil2d.reference(field, cfg))
-    return {"max_err": err, "ms": ms, "ok": err < 1e-4}
+    return {"max_err": err, "ms": ms, "out": out, "device": device, "ok": err < 1e-4}
 
 
-def _pennant(app, procs: int, device, full: bool, repeats: int) -> dict:
+def _pennant(app, procs: int, device, full: bool, repeats: int, world) -> dict:
     from repro_torch.science import pennant
 
-    grid = _grid_for(app, procs, device)
+    grid = _grid_for(app, procs, device, world)
+    device = grid.mesh.device
     gx, gy = grid.shape
     nzx, nzy = definitions.PENNANT_ZONES if full else (16 * gx, 16 * gy)
     cfg = pennant.PennantConfig(nzx=nzx, nzy=nzy, steps=2)
@@ -101,13 +124,14 @@ def _pennant(app, procs: int, device, full: bool, repeats: int) -> dict:
     outs, ms = _timed(lambda: pennant.run(state, grid, cfg), device, repeats)
     refs = pennant.reference(state, cfg)
     err = max(_max_err(o, r) for o, r in zip(outs, refs))
-    return {"max_err": err, "ms": ms, "ok": err < 1e-4}
+    return {"max_err": err, "ms": ms, "out": outs, "device": device, "ok": err < 1e-4}
 
 
-def _circuit(app, procs: int, device, full: bool, repeats: int) -> dict:
+def _circuit(app, procs: int, device, full: bool, repeats: int, world) -> dict:
     from repro_torch.science import circuit
 
-    grid = _grid_for(app, procs, device)
+    grid = _grid_for(app, procs, device, world)
+    device = grid.mesh.device
     cfg = circuit.CircuitConfig(
         nodes_per_piece=definitions.CIRCUIT_NODES_PER_PIECE,
         wires_per_piece=definitions.CIRCUIT_WIRES_PER_PIECE,
@@ -116,7 +140,7 @@ def _circuit(app, procs: int, device, full: bool, repeats: int) -> dict:
     state = circuit.generate(cfg, seed=0, device=device)
     out, ms = _timed(lambda: circuit.run(state, grid, cfg), device, repeats)
     err = _max_err(out, circuit.reference(state, cfg))
-    return {"max_err": err, "ms": ms, "ok": err < 1e-3}
+    return {"max_err": err, "ms": ms, "out": out, "device": device, "ok": err < 1e-3}
 
 
 _HOOKS = {
@@ -147,12 +171,23 @@ def check_batched_equivalence(app, procs: int) -> None:
 
 
 def run(app, procs: int | None = None, device="cuda", full: bool = False,
-        repeats: int = 1) -> dict:
-    """Execute one app under its DSL-derived mesh vs its oracle."""
+        repeats: int = 1, world=None) -> dict:
+    """Execute one app under its DSL-derived mesh vs its oracle; with a
+    ``world`` (``core/world.py::World``), as this process's rank of it.
+    The result's ``out`` is the app's output (a tensor or a tuple),
+    ``device`` the device the app ran on."""
     if app.validate is None:
         raise KeyError(f"{app.name}: no validation hook registered")
     if repeats < 1:
         raise ValueError(f"repeats must be >= 1, got {repeats}")
     n = app.procs(procs)
     check_batched_equivalence(app, n)
-    return _HOOKS[app.validate](app, n, device, full, repeats)
+    res = _HOOKS[app.validate](app, n, device, full, repeats, world)
+    outs = res["out"] if isinstance(res["out"], tuple) else (res["out"],)
+    res["blocks_on"] = sorted({str(_local(o).device) for o in outs})
+    if world is not None:
+        bound = str(res["device"])          # the placed mesh's: this rank's card
+        if res["blocks_on"] != [bound]:
+            raise RuntimeError(f"{app.name}: rank {world.rank}'s blocks are on "
+                               f"{res['blocks_on']}, not its bound {bound}")
+    return res

@@ -40,7 +40,10 @@ once, and wraps the outputs back into DTensors at ``out_specs``; the
 collectives are ``torch.distributed._functional_collectives`` over
 ``(device_mesh, mesh dim)``, each with its dual in the backward.
 Bodies address block dims from the right (or block-relative, as JAX
-does), so one body serves both backends.
+does), so one body serves both backends. Where the group's backend does
+not carry a collective for the blocks' device (gloo with CUDA blocks,
+:data:`STAGED`), that collective goes through host memory and its bytes
+are counted (:func:`staged_bytes`); compute stays on the device.
 """
 from __future__ import annotations
 
@@ -395,6 +398,29 @@ def _shard_map_pg(body, mesh: Mesh, in_specs, out_specs, args):
     return type(out)(wrap(o, s) for o, s in zip(out, out_specs))
 
 
+def full_tensor(x: torch.Tensor) -> torch.Tensor:
+    """The whole value of a process-group result on every rank:
+    ``DTensor.full_tensor``, with each all-gather through ``spmd``'s own,
+    staged where :data:`STAGED` says (DTensor's own all-gather kills a
+    gloo world on CUDA). A plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    y = x.to_local()
+    for m in reversed(range(x.device_mesh.ndim)):   # the minor split first
+        p = x.placements[m]
+        if isinstance(p, Shard):
+            if x.device_mesh.size(m) > 1:
+                y = _gather(y, p.dim, (x.device_mesh, m))
+        elif not isinstance(p, Replicate):
+            raise NotImplementedError(f"full_tensor of a {p} placement")
+    if tuple(y.shape) != tuple(x.shape):
+        raise ValueError(f"uneven shards: gathered {tuple(y.shape)} of a "
+                         f"{tuple(x.shape)} tensor")
+    return y
+
+
 def lead_dims() -> int:
     """How many leading mesh dims a block has in the running body: the
     mesh's rank on virtual ranks, 0 on the process-group backend."""
@@ -503,7 +529,7 @@ def pmax(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
             raise NotImplementedError("pmax has no backward on the process-group "
                                       "backend")
         for g in mesh.dist_dims(axis):
-            x = _wait(_funcol().all_reduce(x.contiguous(), "max", (mesh.dist, g)))
+            x = _reduce(x, "max", (mesh.dist, g))
         return x
     return x.amax(dim=dims, keepdim=True).expand(x.shape)
 
@@ -602,6 +628,52 @@ def _funcol():
     return funcol
 
 
+#: The collectives a backend does not carry for tensors of a device type,
+#: by (backend, device type), under the names of ``staged_bytes``. These,
+#: and only these, are staged: the block goes to host memory, the
+#: collective runs there, the result comes back to the block's device.
+#: ``tools/gloo_cuda_probe.py`` found, on torch 2.11+cu128 (H100), that
+#: gloo's all-gather into one tensor (funcol's, and with it DTensor's
+#: ``full_tensor``) kills both ranks with SIGSEGV on CUDA tensors, while
+#: its reduce-scatter, all-reduce (sum, max) and all-to-all (even and
+#: uneven) carry them.
+STAGED: dict[tuple[str, str], frozenset[str]] = {
+    ("gloo", "cuda"): frozenset({"all_gather"}),
+}
+
+_STAGED_BYTES: collections.Counter = collections.Counter()
+
+
+def staged_bytes() -> dict[str, int]:
+    """Bytes this process moved between its device and host memory to
+    stage each collective (down and back), by collective."""
+    return dict(_STAGED_BYTES)
+
+
+def reset_staged() -> None:
+    _STAGED_BYTES.clear()
+
+
+def _carry(name: str, x: torch.Tensor, group, op) -> torch.Tensor:
+    """``op(x)``, a collective over ``group`` = (DeviceMesh, dim), staged
+    through host memory where :data:`STAGED` says the group's backend
+    does not carry ``name`` for ``x``'s device type."""
+    import torch.distributed as dist
+
+    mesh, dim = group
+    if x.device.type not in (mesh.device_type, "meta"):
+        raise ValueError(f"{name}: a {x.device.type} block on a "
+                         f"{mesh.device_type} mesh; a world's ranks keep their "
+                         f"blocks on one device type")
+    if name not in STAGED.get((dist.get_backend(mesh.get_group(dim)),
+                               x.device.type), ()):
+        return op(x)
+    host = x.cpu()
+    y = op(host)
+    _STAGED_BYTES[name] += host.nbytes + y.nbytes
+    return y.to(x.device)
+
+
 def _wait(t: torch.Tensor) -> torch.Tensor:
     funcol = _funcol()
     if isinstance(t, funcol.AsyncCollectiveTensor):
@@ -612,17 +684,25 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     funcol = _funcol()
     fn = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
-    return _wait(fn(x.contiguous(), dim, group))
+    return _carry("all_gather", x.contiguous(), group,
+                  lambda t: _wait(fn(t, dim, group)))
 
 
 def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     funcol = _funcol()
     fn = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
-    return _wait(fn(x.contiguous(), "sum", dim, group))
+    return _carry("reduce_scatter", x.contiguous(), group,
+                  lambda t: _wait(fn(t, "sum", dim, group)))
+
+
+def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    return _carry(f"all_reduce_{op}", x.contiguous(), group,
+                  lambda t: _wait(_funcol().all_reduce(t, op, group)))
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
-    return _wait(_funcol().all_to_all_single(x.contiguous(), None, None, group))
+    return _carry("all_to_all", x.contiguous(), group,
+                  lambda t: _wait(_funcol().all_to_all_single(t, None, None, group)))
 
 
 def _route(x: torch.Tensor, group, src_of: tuple[int, ...]) -> torch.Tensor:
@@ -637,7 +717,8 @@ def _route(x: torch.Tensor, group, src_of: tuple[int, ...]) -> torch.Tensor:
     if src_of[me] >= 0:
         recv[src_of[me]] = n
     flat = x.reshape(-1)[:sum(send)].contiguous()
-    y = _wait(_funcol().all_to_all_single(flat, recv, send, group))
+    y = _carry("all_to_all_uneven", flat, group,
+               lambda t: _wait(_funcol().all_to_all_single(t, recv, send, group)))
     return y.reshape(x.shape) if src_of[me] >= 0 else torch.zeros_like(x)
 
 
@@ -682,11 +763,11 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _wait(_funcol().all_reduce(x.contiguous(), "sum", group))
+        return _reduce(x, "sum", group)
 
     @staticmethod
     def backward(ctx, g):
-        return _wait(_funcol().all_reduce(g.contiguous(), "sum", ctx.group)), None
+        return _reduce(g, "sum", ctx.group), None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -99,18 +99,17 @@ def grid_for(machine: ProcSpace, cfg: CircuitConfig, device="cuda") -> MatmulGri
 
 
 def circuit_body(cfg: CircuitConfig, n_pieces: int):
-    n_nodes = cfg.n_nodes
-
     def body(volt, charge, cap, src, dst, res):
         volt_loc, charge_loc = volt, charge
         for _ in range(cfg.steps):
-            volt_full = spmd.all_gather(volt_loc, "x", dim=0, tiled=True)
+            volt_full = spmd.all_gather(volt_loc, "x", dim=-1, tiled=True)
             cur = (volt_full.gather(-1, src) - volt_full.gather(-1, dst)) / res
-            acc = torch.zeros((n_pieces, n_nodes), dtype=torch.float32,
-                              device=volt.device)
+            # the local wires' charge on every node: one row a rank on
+            # virtual ranks, this rank's alone on a process group
+            acc = volt_full.new_zeros(volt_full.shape)
             acc.scatter_add_(-1, src, -cfg.dt * cur)
             acc.scatter_add_(-1, dst, cfg.dt * cur)
-            acc_loc = spmd.psum_scatter(acc, "x", scatter_dimension=0,
+            acc_loc = spmd.psum_scatter(acc, "x", scatter_dimension=-1,
                                         tiled=True)
             charge_loc = charge_loc + acc_loc
             volt_loc = volt_loc + charge_loc / cap

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import spmd, world  # noqa: E402
 from repro_torch.core.spmd import P  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.matmul.common import MatmulGrid  # noqa: E402
 from repro_torch.launch import policy  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
@@ -195,6 +196,8 @@ def _worker(rank: int, port: int, out_dir: str) -> None:
                     got, want = got[:2], want[:2]
                 report[key] = max(_rel(_full(g), _full(w)) for g, w in zip(got, want))
                 report[key + "/ran"] = ran
+                report[key + "/full_tensor_equal"] = all(
+                    torch.equal(spmd.full_tensor(g), _full(g)) for g in got)
                 report[key + "/local"] = [list(getattr(g, "_local_tensor", g).shape)
                                           for g in got]
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
@@ -248,6 +251,17 @@ def test_mesh_path_matches_virtual_ranks(gloo, name):
             assert report[key + "/ran"]["all_to_all"] == 2
 
 
+@pytest.mark.parametrize("mesh", ["dataxmodel", "podxdata"])
+def test_spmd_full_tensor_matches_dtensors(gloo, mesh):
+    """``spmd.full_tensor`` (spmd's own all-gathers, which a gloo world on
+    CUDA stages through host memory) gives DTensor's ``full_tensor`` to
+    the bit, for every output of every case, on every rank."""
+    for report in gloo:
+        for key, value in report.items():
+            if key.startswith(mesh + "/") and key.endswith("/full_tensor_equal"):
+                assert value, key
+
+
 def test_sp_attention_runs_on_local_blocks(gloo):
     """Each rank's q block is its quarter: (B/2, S/2, H, hd)."""
     for report in gloo:
@@ -285,7 +299,9 @@ def test_fake_group_meta_round_trip_gives_each_specs_local_shape(multi):
 
 
 def test_world_refuses_nccl_and_a_second_world():
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    """NCCL on a host without a card per rank is refused, naming the cards
+    and the ranks, before any group is made."""
+    with pytest.raises(world.WorldRefused, match="NCCL needs a card per rank.* 2 ranks"):
         with world.world("nccl", 2):
             pass
     with world.world("fake", 4):
@@ -295,6 +311,117 @@ def test_world_refuses_nccl_and_a_second_world():
     with pytest.raises(ValueError, match="needs the address"):
         with world.world("gloo", 2):
             pass
+
+
+# --------------------------------------------- binding ranks to devices
+def test_bound_device_follows_device_ids_not_the_rank_number(monkeypatch):
+    """On a permuted 2x2 mapping with a card per rank, the rank at row-major
+    position p drives card ``device_ids.flat[p]``; with fewer cards only
+    ``share_card`` puts it on card 0; a CPU world's ranks are CPU ranks."""
+    ids = np.array([[2, 0], [3, 1]])
+    mesh = spmd.Mesh(ids, ("x", "y"), "cpu")
+    got = [world.bound_device(mesh, r, "cuda", n_cards=4) for r in range(4)]
+    assert got == [torch.device("cuda", c) for c in (2, 0, 3, 1)]
+    assert [world.bound_device(mesh, r, "cuda", n_cards=8) for r in range(4)] == got
+    assert {world.bound_device(mesh, r, "cuda", share_card=True, n_cards=1)
+            for r in range(4)} == {torch.device("cuda", 0)}
+    with pytest.raises(world.WorldRefused, match="share_card"):
+        world.bound_device(mesh, 1, "cuda", n_cards=1)
+    assert world.bound_device(mesh, 3, "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="outside"):
+        world.bound_device(mesh, 4, "cpu")
+    # a World binds by its own rank, on the cards torch counts
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert world.World("gloo", 4, 1, "cuda").device(mesh) == torch.device("cuda", 0)
+
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+@pytest.mark.parametrize("kind, n, device_type, share, found, refused", [
+    ("nccl", 8, "cuda", False, [H100], "NCCL needs a card per rank, and this host "
+     "has 1 card\\(s\\) \\(NVIDIA H100 80GB HBM3\\) for 8 ranks"),
+    ("nccl", 4, "cuda", True, [H100], "for 4 ranks"),
+    ("nccl", 2, "cuda", False, [], "0 card\\(s\\) for 2 ranks"),
+    ("gloo", 8, "cuda", False, [H100], "1 card\\(s\\) .* for 8 ranks; every rank would "
+     "share card 0, which only share_card"),
+    ("gloo", 4, "cuda", True, [], "0 card\\(s\\) for 4 ranks"),
+    ("gloo", 8, "cuda", True, [H100], None),
+    ("gloo", 4, "cuda", False, [H100] * 4, None),
+    ("nccl", 4, "cuda", False, [H100] * 4, None),
+    ("nccl", 1, "cuda", False, [H100], None),
+    ("gloo", 8, "cpu", False, [], None),
+])
+def test_check_refuses_worlds_without_a_card_per_rank_or_the_flag(
+        kind, n, device_type, share, found, refused):
+    """NCCL needs a card per rank, share_card or not; gloo on CUDA needs a
+    card per rank or share_card and one card; a CPU world needs none."""
+    if refused is None:
+        world.check(kind, n, device_type, share_card=share, found=found)
+    else:
+        with pytest.raises(world.WorldRefused, match=refused):
+            world.check(kind, n, device_type, share_card=share, found=found)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_circuit_runs_on_a_rank_of_a_process_group():
+    """The circuit body on one rank's blocks (no leading mesh dims): a
+    one-rank gloo world's result equals the virtual ranks' and the
+    oracle's. (Its charge buffer was sized from the piece count and
+    scattered with the local wire indices, which holds only for stacked
+    blocks.)"""
+    from repro_torch.science import circuit
+
+    cfg = circuit.CircuitConfig(pieces=1, steps=3)
+    state = circuit.generate(cfg, seed=2, device="cpu")
+    base = spmd.Mesh(np.zeros(1, np.int64), ("x",), "cpu")
+    want = circuit.run(state, MatmulGrid(base, ("x",)), cfg)
+    with world.world("gloo", 1, address=f"tcp://127.0.0.1:{_free_port()}") as w:
+        mesh = w.place(base)
+        got = circuit.run(state, MatmulGrid(mesh, ("x",)), cfg)
+        assert got.to_local().shape == want.shape
+        got = spmd.full_tensor(got)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, circuit.reference(state, cfg), rtol=1e-3, atol=1e-3)
+
+
+def test_max_err_compares_a_process_group_result():
+    """``validate._max_err`` takes a process-group result (a DTensor)
+    against a plain oracle through its full tensor."""
+    from repro_torch.apps import validate
+
+    base = spmd.Mesh(np.zeros((1, 1), np.int64), ("x", "y"), "cpu")
+    x = torch.arange(12.0).reshape(3, 4)
+    with world.world("gloo", 1, address=f"tcp://127.0.0.1:{_free_port()}") as w:
+        out = spmd.shard_map(lambda b: 2 * b, w.place(base), (P("x", "y"),),
+                             P("x", "y"))(x)
+        assert validate._max_err(out, 2 * x) == 0.0
+        assert validate._max_err(out, 2 * x + 0.5) == 0.5
+
+
+def test_staged_collectives_keep_values_and_count_their_bytes(monkeypatch):
+    """A collective that ``spmd.STAGED`` names for a world's backend and
+    the block's device goes through host memory: the same values, its
+    bytes (down and back) counted under its name; the others are not."""
+    monkeypatch.setitem(spmd.STAGED, ("gloo", "cpu"), frozenset({"all_gather"}))
+    base = spmd.Mesh(np.zeros((1, 1), np.int64), ("x", "y"), "cpu")
+    x = torch.arange(24.0).reshape(4, 6)
+
+    def body(b):
+        return spmd.psum(spmd.all_gather(b, "y", dim=-1), "x")
+
+    with world.world("gloo", 1, address=f"tcp://127.0.0.1:{_free_port()}") as w:
+        spmd.reset_staged()
+        out = spmd.shard_map(body, w.place(base), (P("x", "y"),), P("x", "y"))(x)
+        assert torch.equal(spmd.full_tensor(out), x)
+        staged = spmd.staged_bytes()
+    spmd.reset_staged()
+    assert staged == {"all_gather": 2 * x.nbytes}
 
 
 def test_placements_split_an_entry_over_several_axes_major_first():
