@@ -38,7 +38,7 @@ NVIDIA H100:
    every rank sharing card 0 (``--share-card``), each rank launching the
    kernels on its own blocks, values crossing the processes through
    ``torch.distributed`` (the all-gather staged through host memory,
-   ``spmd.STAGED``), at the registry's sizes; each app in its oracle's
+   ``world.STAGED``), at the registry's sizes; each app in its oracle's
    tolerance on every rank, every rank's blocks within ``PG_VIRTUAL_REL``
    (circuit ``PG_CIRCUIT_REL``) of the virtual-rank output's largest
    |entry| on the same inputs, every block on ``cuda:0``, matmul and
@@ -184,7 +184,25 @@ NVIDIA H100:
    card, the arguments there equal the meta count's argument bytes, and
    the peak memory is at least the arguments and under 80 GB; prints the
    reference's figures beside the port's; the phase must end within
-   120 s;
+   120 s; then the production cells with values (``CELL_JOBS``,
+   ``launch.dryrun.run_world_cells``): a gloo world of 4 processes
+   sharing card 0 on a (data=2, model=2) mesh in a Mapple cyclic
+   mapper's device order, fp32, each rank placing its blocks of whole
+   values made on the card from one seed, running the step once and
+   gathering the outputs (the all-gathers staged through host memory):
+   smollm-135m train_4k at full width and depth, B=8, fsdp, from the
+   optimizer state past warmup (``steps.SEEDED_STEP``, seeded moments),
+   where the step moves every parameter past the limit (checked, so an
+   unwritten one would fail);
+   qwen2-moe-a2.7b prefill_32k at 4 of 24 layers, B=2, S=4096, tp with
+   the EP all-to-all, capacity factor 16; smollm-135m decode_32k, B=8,
+   a 4096-entry seeded cache; each rank's gathered outputs held to the
+   same step in this one process on the card (``CELL_LEAF_REL`` of each
+   leaf's largest |entry|, the loss ``CELL_LOSS_ABS``, the grad norm
+   ``CELL_GRAD_NORM_REL``), every block on ``cuda:0``, no launch (the
+   plain route); prints each cell's largest wall over the ranks beside
+   the one-process wall, each rank's peak memory and the staged bytes
+   by collective; the phase must end within 150 s;
 18. drives the training path (no kernel: the plain path, as the reference
    trains): the loop's train step on the card against the same step on
    the CPU on reduced fp32 smollm-135m (three steps, each from the CPU's
@@ -470,6 +488,29 @@ PROD_REFERENCE = {
                                         "all-to-all": 9.46e9}},
 }
 PROD_BUDGET_S = 120.0
+# The production cells with values: a gloo world of 4 processes sharing
+# card 0 on a (data=2, model=2) mesh in a Mapple cyclic mapper's device
+# order, fp32; each cell's gathered outputs against the same step in this
+# one process on the same seeded whole values. Name: (arch, layers (None:
+# all), shape, mode, MoE capacity factor); the cuts: train_4k's batch 256
+# -> 8, prefill_32k's 32 x 32768 -> 2 x 4096 at 4 of 24 layers,
+# decode_32k's 128 x 32768 -> 8 x 4096.
+CELL_MESH = (2, 2)
+CELL_JOBS = {
+    "smollm-135m train_4k": ("smollm-135m", None, ("train_4k", 4096, 8, "train"), "fsdp", 1.25),
+    "qwen2-moe-a2.7b prefill_32k": ("qwen2-moe-a2.7b", 4, ("prefill_32k", 4096, 2, "prefill"),
+                                    "tp", 16.0),
+    "smollm-135m decode_32k": ("smollm-135m", None, ("decode_32k", 4096, 8, "decode"), None,
+                               1.25),
+}
+# Limits against the one-process step: each leaf's largest difference over
+# its largest |entry| (the mesh rule), the train step's loss absolutely
+# and its grad norm relatively; qwen2-moe's fp32 prefill keeps the mesh
+# phase's limit for two orders of summation at its width.
+CELL_LEAF_REL = {"train": 1e-4, "prefill": 2e-3, "decode": 1e-4}
+CELL_LOSS_ABS = 1e-4
+CELL_GRAD_NORM_REL = 1e-3
+CELL_BUDGET_S = 150.0
 # The launcher's restart run, and one step of the other families at their
 # published widths and 2 layers (their plain recurrences loop over time).
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps", "12", "--batch", "8",
@@ -892,14 +933,14 @@ def nccl_one_rank_phase() -> None:
     with world.world("nccl", 1, address=f"tcp://127.0.0.1:{port}") as w:
         mesh = w.place(base)
         spmd.reset_counts()
-        spmd.reset_staged()
-        got = spmd.full_tensor(spmd.shard_map(body, mesh, (P("x", "y"),), P("x", "y"))(x))
+        world.reset_staged()
+        got = spmd.shard_map(body, mesh, (P("x", "y"),), P("x", "y"))(x).full_tensor()
         ops.reset_launch_counts()
         c = ALGORITHMS["cannon"].matmul(a, b, MatmulGrid(mesh, ("x", "y")), use_kernel=True)
         mm = ops.launch_counts()["matmul"]
-        c_full = spmd.full_tensor(c)
+        c_full = c.full_tensor()
         torch.cuda.synchronize()
-        ran, staged = spmd.counts(), spmd.staged_bytes()
+        ran, staged = spmd.counts(), world.staged_bytes()
         local = str(c.to_local().device)
     wall = time.perf_counter() - t0
     expect = ref.matmul(a, b)
@@ -3044,6 +3085,120 @@ def production_mesh_phase(smi: str) -> None:
         fail(f"production mesh phase took {wall:.1f} s, beyond {PROD_BUDGET_S} s")
 
 
+def production_cells_phase(smi: str) -> None:
+    """The production cells with values: ``CELL_JOBS`` on a gloo world of
+    4 processes sharing card 0 (``launch.dryrun.run_world_cells``), each
+    rank's gathered outputs held to the one-process step on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import GPU, Machine, linear_cyclic_mapper, spmd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.knobs import Knobs
+    from repro_torch.launch.mesh import mapper_permutation
+    from repro_torch.models.config import ShapeConfig
+
+    t0 = time.perf_counter()
+    perm = mapper_permutation(linear_cyclic_mapper(Machine(GPU, shape=CELL_MESH)), CELL_MESH)
+    mesh = spmd.Mesh(np.asarray(perm).reshape(CELL_MESH), ("data", "model"), "cuda")
+    one_s, jobs, moved = {}, [], {}
+
+    def least_update(job, out):
+        """The one-process step's smallest parameter change, the leaf's
+        largest |new - seeded| over its largest |new|, and its path: an
+        unwritten parameter fails the limit only if this exceeds it."""
+        seeded = dryrun.job_values(job, "cuda")
+        return min((float((v - seeded("state" + p[len("out/0"):], v)).abs().max()
+                          / v.abs().max()), p)
+                   for p, v in out.items() if p.startswith("out/0/params/"))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as tmp:
+        for name, (arch, layers, shape, mode, capacity) in CELL_JOBS.items():
+            cfg = get_config(arch)
+            cfg = dataclasses.replace(cfg, dtype="float32", n_layers=layers or cfg.n_layers)
+            twin = str(Path(tmp, f"{len(jobs)}.pt"))
+            job = dryrun.CellJob(name=name, arch=arch, cfg=cfg, shape=ShapeConfig(*shape),
+                                 mesh=mesh, mode=mode, knobs=Knobs(moe_capacity=capacity),
+                                 seed=len(jobs), hold_to={"one_process": twin})
+            out, one_s[name] = dryrun.one_process_outputs(job, "cuda")
+            if shape[3] == "train":
+                moved[name] = least_update(job, out)
+            torch.save({k: v.cpu() for k, v in out.items()}, twin)
+            del out
+            torch.cuda.empty_cache()
+            jobs.append(job)
+        t1 = time.perf_counter()
+        (ranks,) = dryrun.run_world_cells(jobs, "gloo", "cuda", share_card=True,
+                                          timeout=CELL_BUDGET_S).values()
+        world_s = time.perf_counter() - t1
+    print(f"production cells with values: a gloo world of {len(ranks)} processes on "
+          f"{CELL_MESH} (device ids {mesh.device_ids.tolist()}), every rank on card 0, "
+          f"{smi}; one-process steps {t1 - t0:.1f} s, the world {world_s:.1f} s")
+    failures = []
+    for job in jobs:
+        rows = [r[job.name] for r in ranks]
+        for rank, row in enumerate(rows):
+            if "error" in row:
+                fail(f"cell {job.name}: rank {rank} failed: {row['error']}\n"
+                     f"{row.get('traceback', '')}")
+        kind = job.shape.kind
+        devices = sorted({d for r in rows for d in r["local_devices"] + r["output_devices"]})
+        launched = {k: v for r in rows for k, v in r["launches"].items() if v}
+        staged = {}
+        for r in rows:
+            for k, v in r["staged"].items():
+                staged[k] = max(staged.get(k, 0), v)
+        worst = 0.0
+        for rank, row in enumerate(rows):
+            for path, (diff, scale) in row["held"]["one_process"].items():
+                if path == "out/1/loss":
+                    bad, err = diff > CELL_LOSS_ABS, diff
+                elif path == "out/1/grad_norm":
+                    err = diff / max(scale, 1e-30)
+                    bad = err > CELL_GRAD_NORM_REL
+                else:
+                    err = diff / max(scale, 1e-30)
+                    bad = err > CELL_LEAF_REL[kind]
+                    worst = max(worst, err)
+                if bad:
+                    failures.append(f"{job.name} rank {rank} {path}: {err:.3e}")
+        walls = [r["step_s"] for r in rows]
+        print(f"cell {job.name} ({rows[0]['mode']}, n_micro {rows[0]['n_micro']}): wall "
+              f"{max(walls):.3f} s (largest over the ranks; one run) against "
+              f"{one_s[job.name]:.3f} s in one process (x{max(walls) / one_s[job.name]:.2f}); "
+              f"worst leaf {worst:.3e} of its largest |entry| "
+              f"(limit {CELL_LEAF_REL[kind]:g}); blocks on {','.join(devices)}; "
+              f"launches {launched or 0}")
+        if kind == "train":
+            m = rows[0]["metrics"]
+            held = rows[0]["held"]["one_process"]
+            least, at = moved[job.name]
+            print(f"  loss {m['loss']:.7f} (|diff| {held['out/1/loss'][0]:.3e}), grad_norm "
+                  f"{m['grad_norm']:.7f} (rel {held['out/1/grad_norm'][0] / held['out/1/grad_norm'][1]:.3e}); "
+                  f"the step moves every parameter leaf by at least {least:.3e} of its largest "
+                  f"|entry| ({at}), so one left unwritten breaks the limit")
+            if least <= CELL_LEAF_REL[kind]:
+                failures.append(f"{job.name}: the step moves {at} by {least:.3e} of its "
+                                f"largest |entry|, within the limit; an unwritten "
+                                f"parameter would pass")
+        peaks = ", ".join(f"{r['peak_memory_bytes'] / 1e9:.2f}" for r in rows)
+        step_staged = max((r["staged_step"] for r in rows), key=lambda d: sum(d.values()))
+        print(f"  peak memory by rank (GB): {peaks}; staged bytes by collective (busiest "
+              f"rank), the step's: {step_staged}; with the check's gather: {staged}")
+        if devices != ["cuda:0"]:
+            failures.append(f"{job.name}: blocks on {devices}, not cuda:0")
+        if launched:
+            failures.append(f"{job.name}: kernels launched {launched}; the cells run the "
+                            f"plain route")
+    wall = time.perf_counter() - t0
+    print(f"production cells phase: {wall:.1f} s (budget {CELL_BUDGET_S} s)")
+    if failures:
+        fail("production cells: " + "; ".join(failures))
+    if wall > CELL_BUDGET_S:
+        fail(f"production cells phase took {wall:.1f} s, beyond {CELL_BUDGET_S} s")
+
+
 def train_phase(smi: str) -> None:
     """The training path: card against CPU, the full-width smollm-135m run
     (with the accumulation check), the launcher's restart, the kernel
@@ -3145,6 +3300,8 @@ def main() -> int:
     flash_paths["mesh"] = mesh_phase(smi)
     torch.cuda.empty_cache()
     production_mesh_phase(smi)
+    torch.cuda.empty_cache()
+    production_cells_phase(smi)
     counts["flash_attention"] = sum(flash_paths.values())
     rows["flash_attention"]["launches_by_path"] = flash_paths
     for name, arch in (("mamba_scan", LM_ARCH), ("wkv6", RWKV_ARCH)):

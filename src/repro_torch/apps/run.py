@@ -166,9 +166,9 @@ def execute(selection, rows, device, report=print) -> int:
     return 0
 
 
-def _world_rank(rank: int, n: int, port: int, kind: str, device: str,
-                share_card: bool, jobs: list, out_dir: str, full: bool,
-                repeats: int, hold_to: dict) -> None:
+def _world_rank(rank: int, n: int, address: str, out_dir: str, kind: str, device: str,
+                share_card: bool, jobs: list, full: bool, repeats: int,
+                hold_to: dict) -> None:
     """One rank of a world: each ``(app, procs)`` of ``jobs`` through
     ``validate.run`` on this rank's bound device, counted; the report goes
     to ``out_dir/rank<r>.json``. ``hold_to`` maps an app to a file
@@ -179,20 +179,20 @@ def _world_rank(rank: int, n: int, port: int, kind: str, device: str,
 
     from repro_torch import apps
     from repro_torch.apps import validate
-    from repro_torch.core import spmd, world
+    from repro_torch.core import world
     from repro_torch.kernels import ops
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     report = {}
-    with world.world(kind, n, rank=rank, address=f"tcp://127.0.0.1:{port}",
-                     device_type=device, share_card=share_card) as w:
+    with world.world(kind, n, rank=rank, address=address, device_type=device,
+                     share_card=share_card) as w:
         for name, procs in jobs:
             ops.reset_launch_counts()
-            spmd.reset_staged()
+            world.reset_staged()
             res = validate.run(apps.get(name), procs, device=device, full=full,
                                repeats=repeats, world=w)
             row = {k: res[k] for k in ("ok", "max_err", "ms", "blocks_on")}
-            row.update(launches=ops.launch_counts(), staged=spmd.staged_bytes())
+            row.update(launches=ops.launch_counts(), staged=world.staged_bytes())
             if name in hold_to:
                 row["virtual_rel"] = _held_to(res["out"], torch.load(
                     hold_to[name], map_location="cpu", mmap=True))
@@ -225,14 +225,6 @@ def run_worlds(jobs, kind: str, device: str, *, share_card: bool = False,
     give, and ``RuntimeError`` if a rank dies or the world outlives
     ``timeout`` seconds. The kernels are built here first, so the ranks
     only load them."""
-    import json
-    import socket
-    import tempfile
-    from pathlib import Path
-
-    import torch.multiprocessing as mp
-    from torch.multiprocessing.spawn import ProcessException
-
     from repro_torch.core import world
 
     groups: dict[int, list] = {}
@@ -244,31 +236,9 @@ def run_worlds(jobs, kind: str, device: str, *, share_card: bool = False,
         from repro_torch.kernels import build
 
         build.load()
-    out = {}
-    for n, group in sorted(groups.items()):
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        with tempfile.TemporaryDirectory(prefix="world-") as tmp:
-            ctx = mp.start_processes(
-                _world_rank, nprocs=n, join=False, start_method="spawn",
-                args=(n, port, kind, device, share_card, group, tmp, full,
-                      repeats, dict(hold_to or {})))
-            try:
-                deadline = time.monotonic() + timeout
-                while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-                    if time.monotonic() >= deadline:
-                        raise RuntimeError(f"world of {n} outlived {timeout:.0f} s")
-            except ProcessException as e:
-                raise RuntimeError(f"a rank of the world of {n} failed: {e}") from e
-            finally:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.terminate()
-                        p.join(10)
-            out[n] = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                      for r in range(n)]
-    return out
+    return {n: world.spawn_ranks(_world_rank, n, (kind, device, share_card, group, full,
+                                                  repeats, dict(hold_to or {})), timeout)
+            for n, group in sorted(groups.items())}
 
 
 def summarize(reports: list[dict], name: str) -> dict:

@@ -28,7 +28,6 @@ import time
 import torch
 
 from repro_torch.apps import definitions
-from repro_torch.core import spmd
 from repro_torch.kernels import ref
 from repro_torch.matmul.common import MatmulGrid
 
@@ -68,9 +67,11 @@ def _local(out: torch.Tensor) -> torch.Tensor:
 
 def _max_err(out: torch.Tensor, expect: torch.Tensor) -> float:
     """Largest |out - expect|; a process-group result (a DTensor) through
-    its full tensor (``spmd.full_tensor``), which every rank gathers and
-    checks."""
-    return float((spmd.full_tensor(out) - expect).abs().max())
+    its full tensor, which every rank gathers and checks."""
+    from torch.distributed.tensor import DTensor
+
+    full = out.full_tensor() if isinstance(out, DTensor) else out
+    return float((full - expect).abs().max())
 
 
 def _matmul(app, procs: int, device, full: bool, repeats: int, world) -> dict:

@@ -41,9 +41,11 @@ collectives are ``torch.distributed._functional_collectives`` over
 ``(device_mesh, mesh dim)``, each with its dual in the backward.
 Bodies address block dims from the right (or block-relative, as JAX
 does), so one body serves both backends. Where the group's backend does
-not carry a collective for the blocks' device (gloo with CUDA blocks,
-:data:`STAGED`), that collective goes through host memory and its bytes
-are counted (:func:`staged_bytes`); compute stays on the device.
+not carry a collective for the blocks' device (gloo with CUDA blocks),
+the world's groups stage it (``core/world.py``). Gradients follow JAX's transpose of shard_map: a block
+replicated over a mesh axis its spec does not name gets the sum of the
+replicas' gradients, and an output replicated so gives each replica
+its share of the cotangent.
 """
 from __future__ import annotations
 
@@ -276,7 +278,9 @@ def assemble(y: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
     """Stacked ``(*mesh.shape, *block)`` -> global tensor (inverse of split).
 
     Mesh axes the spec does not name must hold replicas; coordinate 0 is
-    taken (JAX's shard_map without replication checks does the same).
+    taken (JAX's shard_map without replication checks does the same), and
+    its gradient goes to every replica divided by their count, as JAX's
+    transpose divides an unmapped output's cotangent (``_ReplicaGrad``).
     """
     if tuple(y.shape[:mesh.ndim]) != mesh.shape:
         raise ValueError(f"stacked output of shape {tuple(y.shape)} does not "
@@ -286,7 +290,7 @@ def assemble(y: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
     named = {a for e in spec for a in _names(e)}
     keep = [a for a in mesh.axis_names if a in named]
     index = tuple(slice(None) if a in named else 0 for a in mesh.axis_names)
-    y = y[index]                           # (*kept mesh dims, *block)
+    y = _TakeReplica.apply(y, index)       # (*kept mesh dims, *block)
     order, shape = [], []
     for d, e in enumerate(spec):
         b = len(keep) + d
@@ -357,7 +361,7 @@ def local_block(x: torch.Tensor, spec: Sequence, mesh: Mesh, *,
     value on every rank, and its block is cut locally. With ``even`` it
     raises if a dim does not split evenly, as :func:`split` does; without,
     blocks are ``torch.chunk``'s, the first the largest."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
     spec = _spec_for(spec, x.ndim, mesh)
     for d, e in enumerate(spec):
@@ -371,7 +375,12 @@ def local_block(x: torch.Tensor, spec: Sequence, mesh: Mesh, *,
                                [Replicate()] * len(mesh.dist_axes()), run_check=False)
     if tuple(x.placements) != tuple(want):
         x = x.redistribute(mesh.dist, want)
-    return x.to_local()
+    # A block replicated over a mesh dim is used by each rank there on its
+    # own: its gradient is a partial sum over them, as the stacked form's
+    # expand sums it (and shard_map's replicated outputs give each replica
+    # its share of the gradient, _ReplicaGrad).
+    return x.to_local(grad_placements=[Partial() if p.is_replicate() else p
+                                       for p in want])
 
 
 def _shard_map_pg(body, mesh: Mesh, in_specs, out_specs, args):
@@ -383,10 +392,10 @@ def _shard_map_pg(body, mesh: Mesh, in_specs, out_specs, args):
 
     def wrap(o, spec):
         named = {a for e in _spec_for(spec, o.ndim, mesh) for a in _names(e)}
-        replica = any(mesh.dist.get_local_rank(i)
-                      for i, group in enumerate(mesh.dist_axes()) if not named & set(group))
-        if replica and o.requires_grad:
-            o = _OriginGrad.apply(o)
+        replicas = int(np.prod([mesh.dist.size(i) for i, group in enumerate(mesh.dist_axes())
+                                if not named & set(group)]))
+        if replicas > 1 and o.requires_grad:
+            o = _ReplicaGrad.apply(o, replicas)
         return DTensor.from_local(o, mesh.dist, placements(spec, mesh, o.ndim),
                                   run_check=False)
 
@@ -396,29 +405,6 @@ def _shard_map_pg(body, mesh: Mesh, in_specs, out_specs, args):
         raise ValueError(f"body returned {len(out)} outputs for "
                          f"{len(out_specs)} out_specs")
     return type(out)(wrap(o, s) for o, s in zip(out, out_specs))
-
-
-def full_tensor(x: torch.Tensor) -> torch.Tensor:
-    """The whole value of a process-group result on every rank:
-    ``DTensor.full_tensor``, with each all-gather through ``spmd``'s own,
-    staged where :data:`STAGED` says (DTensor's own all-gather kills a
-    gloo world on CUDA). A plain tensor is returned as it is."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    if not isinstance(x, DTensor):
-        return x
-    y = x.to_local()
-    for m in reversed(range(x.device_mesh.ndim)):   # the minor split first
-        p = x.placements[m]
-        if isinstance(p, Shard):
-            if x.device_mesh.size(m) > 1:
-                y = _gather(y, p.dim, (x.device_mesh, m))
-        elif not isinstance(p, Replicate):
-            raise NotImplementedError(f"full_tensor of a {p} placement")
-    if tuple(y.shape) != tuple(x.shape):
-        raise ValueError(f"uneven shards: gathered {tuple(y.shape)} of a "
-                         f"{tuple(x.shape)} tensor")
-    return y
 
 
 def lead_dims() -> int:
@@ -628,50 +614,15 @@ def _funcol():
     return funcol
 
 
-#: The collectives a backend does not carry for tensors of a device type,
-#: by (backend, device type), under the names of ``staged_bytes``. These,
-#: and only these, are staged: the block goes to host memory, the
-#: collective runs there, the result comes back to the block's device.
-#: ``tools/gloo_cuda_probe.py`` found, on torch 2.11+cu128 (H100), that
-#: gloo's all-gather into one tensor (funcol's, and with it DTensor's
-#: ``full_tensor``) kills both ranks with SIGSEGV on CUDA tensors, while
-#: its reduce-scatter, all-reduce (sum, max) and all-to-all (even and
-#: uneven) carry them.
-STAGED: dict[tuple[str, str], frozenset[str]] = {
-    ("gloo", "cuda"): frozenset({"all_gather"}),
-}
-
-_STAGED_BYTES: collections.Counter = collections.Counter()
-
-
-def staged_bytes() -> dict[str, int]:
-    """Bytes this process moved between its device and host memory to
-    stage each collective (down and back), by collective."""
-    return dict(_STAGED_BYTES)
-
-
-def reset_staged() -> None:
-    _STAGED_BYTES.clear()
-
-
-def _carry(name: str, x: torch.Tensor, group, op) -> torch.Tensor:
-    """``op(x)``, a collective over ``group`` = (DeviceMesh, dim), staged
-    through host memory where :data:`STAGED` says the group's backend
-    does not carry ``name`` for ``x``'s device type."""
-    import torch.distributed as dist
-
-    mesh, dim = group
+def _on_mesh(name: str, x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, contiguous, checked to be a block of the device type of
+    ``group`` = (DeviceMesh, dim)."""
+    mesh, _ = group
     if x.device.type not in (mesh.device_type, "meta"):
         raise ValueError(f"{name}: a {x.device.type} block on a "
                          f"{mesh.device_type} mesh; a world's ranks keep their "
                          f"blocks on one device type")
-    if name not in STAGED.get((dist.get_backend(mesh.get_group(dim)),
-                               x.device.type), ()):
-        return op(x)
-    host = x.cpu()
-    y = op(host)
-    _STAGED_BYTES[name] += host.nbytes + y.nbytes
-    return y.to(x.device)
+    return x.contiguous()
 
 
 def _wait(t: torch.Tensor) -> torch.Tensor:
@@ -684,25 +635,22 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     funcol = _funcol()
     fn = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
-    return _carry("all_gather", x.contiguous(), group,
-                  lambda t: _wait(fn(t, dim, group)))
+    return _wait(fn(_on_mesh("all_gather", x, group), dim, group))
 
 
 def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     funcol = _funcol()
     fn = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
-    return _carry("reduce_scatter", x.contiguous(), group,
-                  lambda t: _wait(fn(t, "sum", dim, group)))
+    return _wait(fn(_on_mesh("reduce_scatter", x, group), "sum", dim, group))
 
 
 def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
-    return _carry(f"all_reduce_{op}", x.contiguous(), group,
-                  lambda t: _wait(_funcol().all_reduce(t, op, group)))
+    return _wait(_funcol().all_reduce(_on_mesh(f"all_reduce_{op}", x, group), op, group))
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
-    return _carry("all_to_all", x.contiguous(), group,
-                  lambda t: _wait(_funcol().all_to_all_single(t, None, None, group)))
+    return _wait(_funcol().all_to_all_single(_on_mesh("all_to_all", x, group), None, None,
+                                             group))
 
 
 def _route(x: torch.Tensor, group, src_of: tuple[int, ...]) -> torch.Tensor:
@@ -716,25 +664,49 @@ def _route(x: torch.Tensor, group, src_of: tuple[int, ...]) -> torch.Tensor:
     recv = [0] * len(src_of)
     if src_of[me] >= 0:
         recv[src_of[me]] = n
-    flat = x.reshape(-1)[:sum(send)].contiguous()
-    y = _carry("all_to_all_uneven", flat, group,
-               lambda t: _wait(_funcol().all_to_all_single(t, recv, send, group)))
+    flat = _on_mesh("all_to_all_uneven", x.reshape(-1)[:sum(send)], group)
+    y = _wait(_funcol().all_to_all_single(flat, recv, send, group))
     return y.reshape(x.shape) if src_of[me] >= 0 else torch.zeros_like(x)
 
 
-class _OriginGrad(torch.autograd.Function):
-    """The identity, whose gradient is zero. An output replicated over an
-    axis its spec does not name is, as on virtual ranks (``assemble``),
-    the replica at coordinate 0; a DTensor gives the full gradient to
-    every replica, so the others' copies must not add theirs."""
+class _ReplicaGrad(torch.autograd.Function):
+    """The identity, whose gradient is divided by ``n``. An output
+    replicated over mesh axes its spec does not name is taken as one
+    replica's value (``assemble`` takes coordinate 0's), and JAX's
+    shard_map transposes it by giving every replica the cotangent over
+    their count; a DTensor gives the whole gradient to every replica, so
+    each keeps its share, and the replicas' inputs sum them (their
+    blocks' gradients are partial sums, ``local_block``). Where the
+    replicas differ (a rank-local term, as an MoE layer's z-loss), every
+    rank's term then counts, as in the reference."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, n):
+        ctx.n = n
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return torch.zeros_like(g)
+        return g / ctx.n, None
+
+
+class _TakeReplica(torch.autograd.Function):
+    """``y[index]`` (one replica along the mesh dims that ``index`` holds
+    at 0), whose gradient goes to every replica over their count, as
+    ``_ReplicaGrad`` on the process-group backend."""
+
+    @staticmethod
+    def forward(ctx, y, index):
+        ctx.shape, ctx.index = y.shape, index
+        return y[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        n = 1
+        for d, i in enumerate(ctx.index):
+            if not isinstance(i, slice):
+                g, n = g.unsqueeze(d), n * ctx.shape[d]
+        return (g / n).expand(ctx.shape), None
 
 
 class _AllGather(torch.autograd.Function):

@@ -39,11 +39,20 @@ would compute out of order; one over positions computes what the
 virtual ranks compute, and the mapping still decides where each block
 lives.
 
+*Host staging.* Where :data:`STAGED` says gloo does not carry a
+collective for the blocks' device type (its all-gather on CUDA tensors
+kills the ranks), a gloo world is built of ``StagedGroup``s: Python
+process groups over gloo's that take that collective through host
+memory and count its bytes (:func:`staged_bytes`), so that every
+caller's all-gather is staged (``spmd``'s, DTensor's redistributions
+and ``full_tensor``); compute stays on the device.
+
 The fake group's store lives under ``torch.testing._internal``, a
 private path (``FAKE_STORE_CHECKED_ON``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 
@@ -157,17 +166,195 @@ class World:
         return bound_device(mesh, self.rank, self.device_type,
                             share_card=self.share_card)
 
-    def place(self, mesh: Mesh) -> Mesh:
-        """``mesh`` on this world with this rank on its bound device: on
+    def place(self, mesh: Mesh, fold: tuple[str, ...] = ()) -> Mesh:
+        """``mesh`` on this world with this rank on its bound device (its
+        ``fold`` axes one dim of the DeviceMesh, :func:`on_world`): on
         CUDA that card becomes current before the DeviceMesh is built."""
         device = self.device(mesh)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        placed = on_world(mesh, device)
+        placed = on_world(mesh, device, fold=fold)
         if device.type == "cuda" and torch.cuda.current_device() != device.index:
             raise RuntimeError(f"rank {self.rank}: the DeviceMesh moved the "
                                f"current card off its bound {device}")
         return placed
+
+
+# ------------------------------------------- host staging of a whole world
+#: The collectives a backend does not carry for tensors of a device type,
+#: by (backend, device type), under the names of :func:`staged_bytes`.
+#: ``tools/gloo_cuda_probe.py`` found, on torch 2.11+cu128 (H100), that
+#: gloo's all-gather kills both ranks with SIGSEGV on CUDA tensors (funcol's,
+#: DTensor's ``Shard -> Replicate`` and ``full_tensor``), while its
+#: reduce-scatter, all-reduce (sum, max) and all-to-all (even and uneven)
+#: carry them.
+STAGED: dict[tuple[str, str], frozenset[str]] = {
+    ("gloo", "cuda"): frozenset({"all_gather"}),
+}
+
+#: The backend name a gloo world registers when :data:`STAGED` names
+#: collectives gloo does not carry for its blocks' device type.
+STAGED_BACKEND = "mapple_staged_gloo"
+
+_STAGED_BYTES: collections.Counter = collections.Counter()
+
+
+def staged_bytes() -> dict[str, int]:
+    """Bytes this process moved between its device and host memory to
+    stage each collective (down and back), by collective."""
+    return dict(_STAGED_BYTES)
+
+
+def reset_staged() -> None:
+    _STAGED_BYTES.clear()
+
+
+def _staged_group_class():
+    """:class:`torch.distributed.ProcessGroup` subclass of a gloo group
+    whose staged collectives go through host memory (built on first use:
+    the class needs ``torch.distributed`` with gloo)."""
+    global _StagedGroup
+    if _StagedGroup is not None:
+        return _StagedGroup
+    from torch.distributed import ProcessGroup, ProcessGroupGloo
+
+    class StagedGroup(ProcessGroup):
+        """A gloo group in which each collective that :data:`STAGED` names
+        for gloo and its blocks' device type copies its inputs to host
+        memory, runs there and copies the result into the caller's
+        outputs on their device, counting the bytes
+        (:func:`staged_bytes`); every other collective is gloo's own on
+        the blocks as they are. All of a world's groups are of this kind,
+        so DTensor's own redistributions are staged as well as ``spmd``'s.
+        A Python ProcessGroup, as
+        ``torch.testing._internal.distributed.multi_threaded_pg``
+        registers one."""
+
+        def __init__(self, store, rank, size, timeout):
+            super().__init__(rank, size)
+            self._gloo = ProcessGroupGloo(store, rank, size, timeout)
+
+        def getBackendName(self):
+            return STAGED_BACKEND
+
+        # A Python group keeps its own name (c10d sets it after the
+        # creator returns; functional collectives look the group up by it).
+        def _set_group_name(self, name):
+            self._group_name = name
+
+        @property
+        def group_name(self):
+            return self._group_name
+
+        def _on_host(self, name, outputs, inputs):
+            """(host outputs, host inputs, copy back) for a staged call:
+            the inputs copied down, the outputs allocated on the host and
+            copied up once the collective has filled them; the bytes
+            counted are those (down and back)."""
+            outs = [torch.empty_like(o, device="cpu") if o.device.type != "cpu" else o
+                    for o in outputs]
+            ins = [i.cpu() for i in inputs]
+
+            def back():
+                for o, h in zip(outputs, outs):
+                    if h is not o:
+                        o.copy_(h)
+                _STAGED_BYTES[name] += sum(t.nbytes for t in ins + outs)
+            return outs, ins, back
+
+        def _wants(self, name, tensors):
+            return any(name in STAGED.get(("gloo", t.device.type), ()) for t in tensors)
+
+        # -- all-gather: staged where named
+        def allgather(self, output_lists, inputs, opts=None):
+            flat = [o for lst in output_lists for o in lst]
+            if not self._wants("all_gather", flat + list(inputs)):
+                return self._gloo.allgather(output_lists, inputs, *_opt(opts))
+            outs, ins, back = self._on_host("all_gather", flat, inputs)
+            it = iter(outs)
+            work = self._gloo.allgather([[next(it) for _ in lst] for lst in output_lists],
+                                        ins, *_opt(opts))
+            work.wait()
+            back()
+            return work
+
+        def _allgather_base(self, output, input, opts=None):
+            if not self._wants("all_gather", [output, input]):
+                return self._gloo._allgather_base(output, input, *_opt(opts))
+            (out,), (inp,), back = self._on_host("all_gather", [output], [input])
+            work = self._gloo._allgather_base(out, inp, *_opt(opts))
+            work.wait()
+            back()
+            return work
+
+        all_gather_single = _allgather_base
+
+        def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+            work = None
+            for o, i in zip(outputs, inputs):
+                work = self._allgather_base(o, i, opts)
+                work.wait()
+            return work
+
+        all_gather_single_coalesced = allgather_into_tensor_coalesced
+
+        # -- the rest: gloo's own (what DTensor, funcol, spmd and c10d's
+        # set-up call; any other collective raises, having no backend)
+        def allreduce(self, tensors, opts=None):
+            return self._gloo.allreduce(tensors, *_opt(opts))
+
+        def _reduce_scatter_base(self, output, input, opts=None):
+            return self._gloo._reduce_scatter_base(output, input, *_opt(opts))
+
+        reduce_scatter_single = _reduce_scatter_base
+
+        def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+            work = None
+            for o, i in zip(outputs, inputs):
+                work = self._gloo._reduce_scatter_base(o, i, *_opt(opts))
+                work.wait()
+            return work
+
+        reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
+
+        def alltoall_base(self, output, input, output_split_sizes, input_split_sizes,
+                          opts=None):
+            return self._gloo.alltoall_base(output, input, output_split_sizes,
+                                            input_split_sizes, *_opt(opts))
+
+        all_to_all_single = alltoall_base
+
+        def broadcast(self, tensors, opts=None):
+            return self._gloo.broadcast(tensors, *_opt(opts))
+
+        def scatter(self, outputs, input_lists, opts=None):
+            return self._gloo.scatter(outputs, input_lists, *_opt(opts))
+
+        def barrier(self, opts=None):
+            return self._gloo.barrier(*_opt(opts))
+
+    _StagedGroup = StagedGroup
+    return StagedGroup
+
+
+_StagedGroup = None
+
+
+def _opt(opts) -> tuple:
+    return () if opts is None else (opts,)
+
+
+def _staged_backend(device_type: str) -> str | None:
+    """The backend name a gloo world on ``device_type`` initialises with:
+    :data:`STAGED_BACKEND` (registered here on first use) where
+    :data:`STAGED` names collectives gloo does not carry for that device
+    type, else None (gloo itself)."""
+    if not STAGED.get(("gloo", device_type)):
+        return None
+    if getattr(dist.Backend, STAGED_BACKEND.upper(), None) is None:
+        dist.Backend.register_backend(STAGED_BACKEND, _staged_group_class(),
+                                      devices=["cpu", "cuda"])
+    return STAGED_BACKEND
 
 
 @contextlib.contextmanager
@@ -195,7 +382,8 @@ def world(kind: str, n: int, *, rank: int = 0, address: str | None = None,
     else:
         if address is None:
             raise ValueError(f"world({kind!r}) needs the address every rank meets at")
-        dist.init_process_group(kind, init_method=address, rank=rank, world_size=n)
+        backend = (_staged_backend(device_type) if kind == "gloo" else None) or kind
+        dist.init_process_group(backend, init_method=address, rank=rank, world_size=n)
     try:
         yield World(kind, n, rank, device_type, share_card)
     finally:
@@ -231,3 +419,40 @@ def on_world(mesh: Mesh, device, device_type: str | None = None,
     mesh = Mesh(mesh.device_ids, mesh.axis_names, device, fold=fold)
     return Mesh(mesh.device_ids, mesh.axis_names, device,
                 dist=device_mesh(mesh, device_type or device.type), fold=fold)
+
+
+def spawn_ranks(fn, n: int, args: tuple, timeout: float) -> list[dict]:
+    """Run ``fn(rank, n, address, out_dir, *args)`` in ``n`` spawned
+    processes, one a rank, meeting at a free port of 127.0.0.1; each rank
+    writes its report to ``out_dir/rank<r>.json``. Returns the reports in
+    rank order; raises ``RuntimeError`` if a rank dies or the world
+    outlives ``timeout`` seconds (its processes are then ended)."""
+    import json
+    import socket
+    import tempfile
+    import time
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    with tempfile.TemporaryDirectory(prefix="world-") as tmp:
+        ctx = mp.start_processes(fn, nprocs=n, join=False, start_method="spawn",
+                                 args=(n, address, tmp, *args))
+        try:
+            deadline = time.monotonic() + timeout
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"world of {n} outlived {timeout:.0f} s")
+        except ProcessException as e:
+            raise RuntimeError(f"a rank of the world of {n} failed: {e}") from e
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        return [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(n)]
+

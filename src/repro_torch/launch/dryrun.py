@@ -56,6 +56,14 @@ reference's do not (``use_pallas=False``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both \\
       --device meta --out results/dryrun_mesh_torch.json
+
+``run_world_cells`` runs cells with values instead, one process per
+mesh rank on a gloo world (the cells' counterpart of
+``apps/run.py::run_worlds``): each rank runs its share of the step on
+its blocks of whole values and gathers the outputs, which are held to
+files of whole outputs (the reference's, or the same step in one
+process, ``one_process_outputs``). It has no CLI flag, as the
+reference's launchers have none for it.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Any
 
 import torch
 
@@ -341,6 +350,186 @@ def run_mesh_cell(arch: str, shape_name: str, mesh_name: str, *, device: str = "
         if verbose:
             print(f"[ERR]  {arch} x {shape_name} x {mesh_name}: {e}")
     return record
+
+
+# ------------------------------------ cells with values, one process a rank
+@dataclasses.dataclass(frozen=True)
+class CellJob:
+    """One production cell for :func:`run_world_cells`: ``make_cell`` of
+    ``arch`` at ``cfg`` and ``shape`` on ``mesh`` (virtual device ids on
+    named axes, whose size is the world's; ``fold`` axes one DeviceMesh
+    dim), in ``mode`` (None: the policy's), under ``knobs``. Whole values
+    come from ``values``, an .npz of them by ``Cell.place`` path, or when
+    None from ``seed`` (``steps.seeded_values``, made on the rank's
+    device). ``hold_to`` maps a label to a file of whole outputs by path
+    ('out/...'; an .npz, or a dict saved with ``torch.save``) that every
+    rank holds its gathered outputs to."""
+
+    name: str
+    arch: str
+    cfg: Any
+    shape: Any
+    mesh: Any
+    mode: str | None = None
+    fold: tuple[str, ...] = ()
+    knobs: Any = None
+    values: str | None = None
+    seed: int = 0
+    hold_to: dict = dataclasses.field(default_factory=dict)
+
+
+def job_values(job: CellJob, device):
+    """``Cell.place``'s values of ``job`` on ``device``."""
+    import numpy as np
+
+    from repro_torch.launch import steps
+
+    if job.values is None:
+        return steps.seeded_values(job.seed, job.cfg.vocab_size, device)
+    z = np.load(job.values)
+
+    def make(path, like):
+        v = np.array(z[path])
+        return int(v) if path == "pos" else torch.from_numpy(v)
+
+    return make
+
+
+def outputs_by_path(out) -> dict:
+    """A step's outputs as {path: tensor}, paths from 'out' (``Cell.place``'s
+    naming: keys, fields and indices joined by '/')."""
+    from repro_torch.launch import steps
+
+    flat = {}
+    steps._tree_at(lambda p, x: flat.__setitem__(p, x) if isinstance(x, torch.Tensor)
+                   else None, "out", out)
+    return flat
+
+
+def one_process_outputs(job: CellJob, device) -> tuple[dict, float]:
+    """``job``'s step in this one process on ``device``: the cell built on a
+    fake world of the mesh's size (for its arguments and microbatches),
+    run on whole plain tensors of the same values under the cell's
+    settings with no mesh. Its outputs by path (the twin every rank's
+    gathered outputs are held to) and the step's seconds."""
+    from repro_torch.core import world
+    from repro_torch.launch import knobs as knobs_mod
+    from repro_torch.launch import steps
+
+    knobs = job.knobs or knobs_mod.Knobs()
+    with world.world("fake", int(job.mesh.device_ids.size)), knobs_mod.apply(knobs):
+        mesh = world.on_world(job.mesh, "meta", device_type="cpu", fold=job.fold)
+        cell = steps.make_cell(job.arch, job.cfg, job.shape, mesh, mode=job.mode)
+    args = cell.whole(job_values(job, device), device)
+    cuda = torch.device(device).type == "cuda"
+    with knobs_mod.apply(knobs), steps.mesh_settings(job.cfg, job.shape, None,
+                                                     mode=cell.plan.mode):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.step_fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return {k: v.detach() for k, v in outputs_by_path(out).items()}, seconds
+
+
+def _held(full: dict, path: str) -> dict:
+    """{output path: [max |got - want|, max |want|]} against the whole
+    outputs saved at ``path``."""
+    import numpy as np
+
+    want = np.load(path) if str(path).endswith(".npz") else torch.load(
+        path, map_location="cpu", mmap=True)
+    out = {}
+    for p, got in full.items():
+        w = want[p]
+        w = (torch.from_numpy(np.array(w)) if not isinstance(w, torch.Tensor) else w
+             ).to(got.device, torch.float64)
+        if tuple(w.shape) != tuple(got.shape):
+            raise ValueError(f"{p}: gathered {tuple(got.shape)}, held to {tuple(w.shape)}")
+        out[p] = [float((got.detach().double() - w).abs().max()), float(w.abs().max())]
+        del w
+    return out
+
+
+def _cell_on_rank(w, job: CellJob) -> dict:
+    from repro_torch.core import world
+    from repro_torch.kernels import ops
+    from repro_torch.launch import knobs as knobs_mod
+    from repro_torch.launch import steps
+
+    mesh = w.place(job.mesh, fold=job.fold)
+    with knobs_mod.apply(job.knobs or knobs_mod.Knobs()):
+        cell = steps.make_cell(job.arch, job.cfg, job.shape, mesh, mode=job.mode)
+        ops.reset_launch_counts()
+        world.reset_staged()
+        rec = cell.run(mesh.device, values=job_values(job, mesh.device))
+        staged_step = world.staged_bytes()
+        full = outputs_by_path(cell.gather(rec.pop("out")))
+    row = dict(rec, mode=cell.plan.mode, n_micro=cell.n_micro,
+               coords=list(mesh.dist.get_coordinate()), launches=ops.launch_counts(),
+               staged_step=staged_step, staged=world.staged_bytes(),
+               held={label: _held(full, path) for label, path in job.hold_to.items()})
+    if job.shape.kind == "train":
+        row["metrics"] = {k.split("/")[-1]: float(v) for k, v in full.items()
+                          if k.startswith("out/1/")}
+    return row
+
+
+def _cells_rank(rank: int, n: int, address: str, out_dir: str, kind: str, device: str,
+                share_card: bool, jobs: list) -> None:
+    """One rank of a world of cells: each job's cell on this rank's bound
+    device, its outputs gathered and held to the job's files; the report
+    (a job's error in place of its row, the others still run) goes to
+    ``out_dir/rank<r>.json``."""
+    import os
+
+    from repro_torch.core import world
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    if device == "cuda":
+        from repro_torch.kernels.ref import no_tf32
+
+        no_tf32()
+    report = {}
+    with world.world(kind, n, rank=rank, address=address, device_type=device,
+                     share_card=share_card) as w:
+        for job in jobs:
+            try:
+                report[job.name] = _cell_on_rank(w, job)
+            except Exception as e:  # noqa: BLE001 - reported, the tests read it
+                report[job.name] = {"error": f"{type(e).__name__}: {e}",
+                                    "traceback": traceback.format_exc()[-3000:]}
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def run_world_cells(jobs, kind: str, device: str, *, share_card: bool = False,
+                    timeout: float = 600.0) -> dict:
+    """Run each :class:`CellJob` with one process per mesh rank (the cells'
+    counterpart of ``apps/run.py::run_worlds``): one ``kind`` world per
+    mesh size, spawned once, its cells run in turn. Each rank places the
+    mesh (``World.place``: on CUDA the card its position's ``device_ids``
+    entry names, or card 0 with ``share_card``), builds the cell with
+    ``make_cell``, runs it once on its blocks of the whole values and
+    gathers the outputs; it reports the step's wall, its peak memory,
+    its staged bytes by collective (the step's and with the gather), the
+    devices and shapes of its blocks, the kernels launched and each
+    output's difference from every ``hold_to`` file. Returns ``{n: [rank
+    reports]}``; raises ``world.WorldRefused`` before spawning a world
+    the host cannot give and ``RuntimeError`` if a rank dies or the
+    world outlives ``timeout`` seconds."""
+    from repro_torch.core import world
+
+    groups: dict[int, list] = {}
+    for job in jobs:
+        groups.setdefault(int(job.mesh.device_ids.size), []).append(job)
+    for n in groups:
+        world.check(kind, n, device, share_card=share_card)
+    return {n: world.spawn_ranks(_cells_rank, n, (kind, device, share_card, group), timeout)
+            for n, group in sorted(groups.items())}
 
 
 def main(argv=None) -> int:

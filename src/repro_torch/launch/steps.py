@@ -9,7 +9,9 @@ callables are what is left: the abstract arguments are
 a production mesh ``make_cell`` builds the whole cell (``Cell``): its
 arguments are meta DTensors on a process group placed by
 ``launch/policy.py``'s plan, ``Cell.count`` counts one rank's share and
-``Cell.run`` runs it on a device. ``mesh_settings`` is the one place the
+``Cell.run`` runs it on a device, on seeded filler or, on a real group,
+on this rank's blocks of whole values (``Cell.place``), whose outputs
+``Cell.gather`` makes whole. ``mesh_settings`` is the one place the
 model's mesh switches (sequence sharding, the layer barrier, the MoE
 groups) are set for a cell. The train step keeps the reference's
 gradient accumulation, with the accumulation factor from
@@ -198,6 +200,7 @@ class Cell:
     plan: Any
     mesh: Any
     seq_shard: bool = True
+    n_micro: int = 1
 
     @contextlib.contextmanager
     def _settings(self, mesh):
@@ -229,20 +232,102 @@ class Cell:
                                                               self.abstract_args)
         return costs
 
-    def run(self, device="cuda", seed: int = 0) -> dict:
-        """This rank's share of the step, once, on ``device``: seeded local
-        blocks (weights N(0, 0.02), token ids below the vocabulary,
-        optimizer moments and caches zero) and the collectives the world
-        carries out (none of their values on a fake group, which moves no
-        data). Returns the seconds, the argument bytes, the devices the
-        local blocks lie on and, on a card, the peak memory since the
-        arguments were made."""
+    def place(self, make, device=None) -> tuple:
+        """The step's arguments as DTensors on this rank's blocks, from
+        whole values: ``make(path, like)`` gives the whole leaf at ``path``
+        (``ARG_NAMES`` joined with the tree's keys by '/'; the decode
+        position an int) of ``like``'s global shape and dtype
+        (:func:`seeded_values`). Leaf by leaf, the whole value is made, cut
+        to this rank's block by its ``NamedSharding.distribute`` on
+        ``device`` (default: the mesh's) and freed, so no process holds
+        the whole tree; on a folded mesh a ZeRO-1 moment is cut as its
+        DTensor is (``_on_fold``)."""
+        from torch.distributed.tensor import DTensor
+
+        dev = torch.device(device) if device is not None else self.mesh.device
+        mesh = dataclasses.replace(self.mesh, device=dev)
+
+        def one(path, x, sh):
+            if not isinstance(x, DTensor):
+                return make(path, x) if path == "pos" else x
+            whole = torch.as_tensor(make(path, x))
+            if tuple(whole.shape) != tuple(x.shape) or whole.dtype != x.dtype:
+                raise ValueError(f"{path}: whole value {tuple(whole.shape)} "
+                                 f"{whole.dtype}, the cell takes {tuple(x.shape)} {x.dtype}")
+            block = dataclasses.replace(sh, mesh=mesh).distribute(whole.to(dev))
+            del whole
+            return block
+
+        return tuple(_tree_at(one, name, a, sh) for name, a, sh in
+                     zip(ARG_NAMES[self.shape.kind], self.abstract_args,
+                         self._arg_shardings()))
+
+    def whole(self, make, device) -> tuple:
+        """The step's arguments as whole plain tensors on ``device`` (the
+        one-process twin's), from the same ``make`` as :meth:`place`."""
+        def one(path, x):
+            if path == "pos":
+                return make(path, x)
+            return torch.as_tensor(make(path, x)).to(device) \
+                if isinstance(x, torch.Tensor) else x
+
+        return tuple(_tree_at(one, name, a) for name, a in
+                     zip(ARG_NAMES[self.shape.kind], self.abstract_args))
+
+    def blocks(self, args) -> dict:
+        """Each DTensor argument's path -> [this rank's block shape, its
+        sharding's spec] (a spec entry a name, a list of names or None)."""
+        from torch.distributed.tensor import DTensor
+
+        out = {}
+
+        def one(path, x, sh):
+            if isinstance(x, DTensor):
+                out[path] = [list(x.to_local().shape),
+                             [e if e is None or isinstance(e, str) else list(e)
+                              for e in sh.spec]]
+
+        for name, a, sh in zip(ARG_NAMES[self.shape.kind], args, self._arg_shardings()):
+            _tree_at(one, name, a, sh)
+        return out
+
+    def _arg_shardings(self) -> tuple:
+        """The shardings the arguments are cut by: ``in_shardings``, with
+        the train state's as its DTensors hold it (on a folded mesh the
+        ZeRO-1 moments over the folded axes, ``out_shardings``' state)."""
+        if self.shape.kind == "train":
+            return self.out_shardings[0], self.in_shardings[1]
+        return tuple(self.in_shardings)
+
+    def gather(self, out):
+        """The whole value of every output on every rank (DTensor's
+        ``full_tensor``; a world's groups stage its gathers where
+        ``world.STAGED`` says)."""
+        from torch.distributed.tensor import DTensor
+
+        return _tree(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, out)
+
+    def run(self, device="cuda", seed: int = 0, values=None) -> dict:
+        """This rank's share of the step, once, on ``device``. Without
+        ``values``, on seeded local blocks (weights N(0, 0.02), token ids
+        below the vocabulary, optimizer moments and caches zero): the
+        count phase's filler, whose values are those of no whole tensor
+        (and, on a fake group, which moves no data, not even the
+        collectives'). With ``values`` (a maker, see :meth:`place`), on
+        this rank's blocks of them, and the record's ``"out"`` holds the
+        outputs at ``out_shardings`` (:meth:`gather` makes them whole).
+        Returns the seconds, the argument bytes, the devices the local
+        blocks lie on and, on a card, the peak memory since the arguments
+        were made."""
         from repro_torch.launch import flops
 
         dev = torch.device(device)
         mesh = dataclasses.replace(self.mesh, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        args = _seeded(self.abstract_args, gen, self.cfg.vocab_size, dev)
+        if values is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            args = _seeded(self.abstract_args, gen, self.cfg.vocab_size, dev)
+        else:
+            args = self.place(values, dev)
         arg_bytes = flops.nbytes(args)
         local_devices = sorted({str(t.device) for t in _local_leaves(args)})
         cuda = dev.type == "cuda"
@@ -266,6 +351,8 @@ class Cell:
                   "peak_memory_bytes": None}
         if cuda:
             record["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if values is not None:
+            record.update(out=out, blocks=self.blocks(args))
         return record
 
 
@@ -297,16 +384,78 @@ def _backward_thread_replication(device, on: bool) -> None:
 def _tree(fn, *trees):
     """``fn`` over the leaves of matching nested dicts, lists, tuples and
     dataclasses (a None or non-tensor leaf is passed as it is)."""
+    return _tree_at(lambda _, *xs: fn(*xs), "", *trees)
+
+
+# The names of a cell's arguments by shape kind: the first key of a
+# leaf's path in ``Cell.place``.
+ARG_NAMES = {"train": ("state", "batch"), "prefill": ("params", "inputs"),
+             "decode": ("params", "cache", "pos", "token")}
+
+
+def _tree_at(fn, path: str, *trees):
+    """``_tree`` whose ``fn`` also takes each leaf's path: ``path`` and the
+    keys, fields or indices down to it, joined by '/'."""
     t = trees[0]
     if dataclasses.is_dataclass(t):
-        return type(t)(*[_tree(fn, *[getattr(x, f.name) for x in trees])
+        return type(t)(*[_tree_at(fn, f"{path}/{f.name}", *[getattr(x, f.name) for x in trees])
                          for f in dataclasses.fields(t)])
     if isinstance(t, dict):
-        return {k: _tree(fn, *[x[k] for x in trees]) for k in t}
+        return {k: _tree_at(fn, f"{path}/{k}", *[x[k] for x in trees]) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*[_tree_at(fn, f"{path}/{k}", *xs)
+                         for k, *xs in zip(t._fields, *trees)])
     if isinstance(t, (list, tuple)):
-        out = [_tree(fn, *xs) for xs in zip(*trees)]
-        return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
-    return fn(*trees)
+        return type(t)(_tree_at(fn, f"{path}/{i}", *xs) for i, xs in enumerate(zip(*trees)))
+    return fn(path, *trees)
+
+
+#: The optimizer state seeded values start from, as a run past warmup
+#: holds it: the step at the end of warmup, so the rate is the peak's
+#: (3e-4; at step 0 warmup's 3e-6 moves no parameter past the limits
+#: that the cells are held to), and moments of scale
+#: ``SEEDED_MOMENT`` (mu N(0, s), nu s^2 (0.5 + U[0, 1))). With zero
+#: moments a leaf whose gradients are all below Adam's eps (a random
+#: model's attention queries and keys) moves only by weight decay, 3e-5
+#: of its largest entry; seeded moments move every parameter by some
+#: lr, over 1e-3 of its leaf's largest, so a parameter that a step
+#: failed to write fails the check, and they keep the update smooth
+#: where a gradient crosses zero. Gradients above s still rule both
+#: moments, and the moments' blocks carry values their placement must
+#: keep.
+SEEDED_STEP = opt_mod.AdamWConfig().warmup_steps
+SEEDED_MOMENT = 1e-8
+
+
+def seeded_values(seed: int, vocab: int, device="cuda"):
+    """``Cell.place``'s maker of whole values from one seed, on ``device``:
+    each floating leaf N(0, 0.02) (a decode cache N(0, 1)), the optimizer's
+    step :data:`SEEDED_STEP` and moments of scale :data:`SEEDED_MOMENT`,
+    token ids uniform below ``vocab``. Every leaf has its own generator, seeded by ``seed`` and its
+    path, so a value does not depend on the order leaves are made in, nor
+    on the mesh."""
+    import zlib
+
+    def make(path, like):
+        if path == "pos":
+            return like
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 2 ** 32 + zlib.crc32(path.encode()))
+        shape = tuple(like.shape)
+        if path == "state/opt/step":
+            return torch.full(shape, SEEDED_STEP, dtype=like.dtype, device=device)
+        if path.startswith("state/opt/nu/"):
+            return torch.rand(shape, generator=gen, device=device).add_(0.5).mul_(
+                SEEDED_MOMENT ** 2).to(like.dtype)
+        if not like.dtype.is_floating_point:
+            return torch.randint(0, vocab, shape, generator=gen, device=device,
+                                 dtype=like.dtype)
+        scale = (1.0 if path.startswith("cache") else
+                 SEEDED_MOMENT if path.startswith("state/opt/mu/") else 0.02)
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).mul_(scale).to(like.dtype)
+
+    return make
 
 
 def _spec_bytes(args, shardings) -> int:
@@ -464,7 +613,7 @@ def make_cell(arch: str, cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                       "lr": plan.replicated()}
         return Cell(arch, cfg, shape, make_train_step(model, shape, n_micro=n_micro),
                     (state, place(batch, batch_sh)), (state_sh, batch_sh),
-                    (state_out, metrics_sh), plan, mesh, seq_shard)
+                    (state_out, metrics_sh), plan, mesh, seq_shard, n_micro)
     if shape.kind == "prefill":
         inputs = specs.prefill_specs(cfg, shape)["inputs"]
         in_sh = plan.batch_like({"inputs": inputs})["inputs"]

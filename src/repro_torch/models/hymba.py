@@ -243,7 +243,7 @@ class HymbaLM(nn.Module):
         """One decode step; the cache is updated in place and returned."""
         cfg = self.cfg
         dt = _dtype(cfg)
-        x = layers.embed(params["embed"], tokens, dt)
+        x = layers.embed_token(params["embed"], tokens, dt)
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         slot = pos % cache["k"].shape[2]
         for i in range(cfg.n_layers):

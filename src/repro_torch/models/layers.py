@@ -378,6 +378,17 @@ def embed(params, ids, dtype):
     return params["table"][ids].to(dtype)
 
 
+def embed_token(params, ids, dtype):
+    """``embed`` for one decode step's tokens (B, 1), cut over the batch
+    axes and whole over the model axis. On a vocabulary cut over the model
+    axis, DTensor's ``F.embedding`` leaves a pending masked sum that a
+    later elementwise product cannot resolve (AssertionError in
+    ``_reduce_shard_value`` at the first norm, torch 2.13); the prefill's
+    residual constraint resolves it right after the gather, and so does
+    this one."""
+    return shd.batch_sharded(embed(params, ids, dtype))
+
+
 def unembed(params, x, table=None):
     t = (table if table is not None else params["table"]).to(x.dtype)
     return shd.proj(x, t.T)

@@ -315,7 +315,7 @@ class RWKV6LM(nn.Module):
         layer's slice of the cache is updated in place and the cache
         returned. ``pos`` is unused: the state carries the position."""
         cfg = self.cfg
-        x = layers.embed(params["embed"], tokens, _dtype(cfg))    # (B,1,D)
+        x = layers.embed_token(params["embed"], tokens, _dtype(cfg))    # (B,1,D)
         for i in range(cfg.n_layers):
             p = decode_layer(layer(params["layers"], i), x)
             c = layer(cache, i)

@@ -159,6 +159,34 @@ def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def write_at(x: torch.Tensor, value: torch.Tensor, dim: int, index: int) -> torch.Tensor:
+    """``x``'s entry ``index`` along ``dim`` set to ``value`` (``x``'s shape
+    without ``dim``), in place; returns ``x``. On a DTensor whose ``dim``
+    is cut over mesh dims (a decode cache cut along its sequence), an
+    indexed assignment makes DTensor gather that dim into a new tensor
+    and write there, leaving ``x`` as it was; here the rank whose block
+    holds ``index`` writes its block of ``value`` into its own, cut as
+    ``torch.chunk`` cuts (DTensor's rule), mesh dim by mesh dim."""
+    if not _is_dtensor(x) or not any(p.is_shard(dim) for p in x.placements):
+        x.select(dim, index).copy_(value)
+        return x
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    want = [_replicate() if p.is_shard(dim) else
+            Shard(p.dim - (p.dim > dim)) if p.is_shard() else p for p in x.placements]
+    local = value.redistribute(mesh, want).to_local()
+    size, offset = x.shape[dim], 0
+    for m, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            step = -(-size // mesh.size(m))
+            lo = min(mesh.get_local_rank(m) * step, size)
+            offset, size = offset + lo, min(lo + step, size) - lo
+    if offset <= index < offset + size:
+        x.to_local().select(dim, index - offset).copy_(local)
+    return x
+
+
 def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -290,15 +318,20 @@ def microbatches(x: torch.Tensor, n: int) -> torch.Tensor:
     B / n). A DTensor cut along its batch has each microbatch cut the same
     way: the batch is gathered, reshaped and cut again along each
     microbatch's rows (DTensor cannot cut n microbatches over more ranks
-    than n divides by; XLA reshuffles the token batch likewise)."""
+    than n divides by; XLA reshuffles the token batch likewise). Where a
+    microbatch's rows do not split over those ranks, each holds it whole,
+    as ``constrain`` leaves a dim that does not divide."""
     if _is_dtensor(x) and any(p.is_shard(0) for p in x.placements):
         from torch.distributed.tensor import Shard
 
+        mesh = x.device_mesh
         cut = [p.is_shard(0) for p in x.placements]
-        whole = x.redistribute(x.device_mesh, [
+        whole = x.redistribute(mesh, [
             _replicate() if c else p for c, p in zip(cut, x.placements)])
         y = whole.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
-        return y.redistribute(x.device_mesh, [
+        if (x.shape[0] // n) % math.prod(mesh.size(m) for m, c in enumerate(cut) if c):
+            return y
+        return y.redistribute(mesh, [
             Shard(1) if c else p for c, p in zip(cut, x.placements)])
     return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
 

@@ -31,7 +31,7 @@ from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (BATCH_AXES, constrain, decode_layer, layer_barrier,
                                          logits_sharded, merge_heads, proj, residual,
-                                         split_heads)
+                                         split_heads, write_at)
 from repro_torch.models.params import (
     ParamDef,
     Schema,
@@ -230,8 +230,7 @@ def _head_table(params):
 def _cache_update(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
     """Write ``new`` (B, ...) at ``slot`` of the cache's axis 1, in place
     (the reference's ``dynamic_update_index_in_dim``, without the copy)."""
-    cache[:, slot] = new
-    return cache
+    return write_at(cache, new, 1, slot)
 
 
 # ------------------------------------------------------------- full forward
@@ -332,7 +331,7 @@ class DecoderLM(nn.Module):
         if cfg.stub_frontend:
             x = token_or_embed.to(dt)                          # (B, 1, D)
         else:
-            x = layers.embed(params["embed"], token_or_embed, dt)  # (B,1,D)
+            x = layers.embed_token(params["embed"], token_or_embed, dt)  # (B,1,D)
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         C = next(iter(cache.values())).shape[2]
         slot = pos % C if cfg.sliding_window > 0 else min(pos, C - 1)

@@ -137,7 +137,7 @@ with world.world("gloo", n, rank=rank, address=f"tcp://127.0.0.1:{port}") as w:
             got = {k: circuit.run(state_from_numpy(k, mine, "cpu"), grid, cfg)}
         ran = spmd.counts()["shard_map"]
         for key, v in got.items():
-            out[key] = spmd.full_tensor(v).numpy()
+            out[key] = v.full_tensor().numpy()
             out[key + ".local"] = np.asarray(v.to_local().shape)
             out[key + ".device"] = np.asarray(str(v.to_local().device))
             out[key + ".ran"] = np.asarray(ran)

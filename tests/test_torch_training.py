@@ -619,8 +619,9 @@ def test_accumulated_step_matches_jax(arch, jax_cell_globals):
     for i in range(2):
         jb, tb = _batch(tm.cfg, 4, 32, seed=200 + i, masked=False)
         # Called outside the mesh's context: under one, the reference's
-        # MoE layer takes its expert-parallel shard_map path, which waits
-        # for the multi-card substrate in the port.
+        # MoE layer takes its expert-parallel shard_map path. The same
+        # cell under a (data=2, model=2) mesh, the port's on a gloo world
+        # of 4 processes, is held to it in tests/test_torch_cells.py.
         jstate, jmet = jstep(jstate, jb)
         state, m = step(state, tb)
         state1, m1 = step1(state1, tb)

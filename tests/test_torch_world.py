@@ -196,8 +196,6 @@ def _worker(rank: int, port: int, out_dir: str) -> None:
                     got, want = got[:2], want[:2]
                 report[key] = max(_rel(_full(g), _full(w)) for g, w in zip(got, want))
                 report[key + "/ran"] = ran
-                report[key + "/full_tensor_equal"] = all(
-                    torch.equal(spmd.full_tensor(g), _full(g)) for g in got)
                 report[key + "/local"] = [list(getattr(g, "_local_tensor", g).shape)
                                           for g in got]
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
@@ -249,17 +247,6 @@ def test_mesh_path_matches_virtual_ranks(gloo, name):
         if name == "moe_shard_map":
             assert report[key + "/routing_equal"], rank
             assert report[key + "/ran"]["all_to_all"] == 2
-
-
-@pytest.mark.parametrize("mesh", ["dataxmodel", "podxdata"])
-def test_spmd_full_tensor_matches_dtensors(gloo, mesh):
-    """``spmd.full_tensor`` (spmd's own all-gathers, which a gloo world on
-    CUDA stages through host memory) gives DTensor's ``full_tensor`` to
-    the bit, for every output of every case, on every rank."""
-    for report in gloo:
-        for key, value in report.items():
-            if key.startswith(mesh + "/") and key.endswith("/full_tensor_equal"):
-                assert value, key
 
 
 def test_sp_attention_runs_on_local_blocks(gloo):
@@ -385,7 +372,7 @@ def test_circuit_runs_on_a_rank_of_a_process_group():
         mesh = w.place(base)
         got = circuit.run(state, MatmulGrid(mesh, ("x",)), cfg)
         assert got.to_local().shape == want.shape
-        got = spmd.full_tensor(got)
+        got = got.full_tensor()
     assert torch.equal(got, want)
     torch.testing.assert_close(got, circuit.reference(state, cfg), rtol=1e-3, atol=1e-3)
 
@@ -405,10 +392,10 @@ def test_max_err_compares_a_process_group_result():
 
 
 def test_staged_collectives_keep_values_and_count_their_bytes(monkeypatch):
-    """A collective that ``spmd.STAGED`` names for a world's backend and
+    """A collective that ``world.STAGED`` names for a world's backend and
     the block's device goes through host memory: the same values, its
     bytes (down and back) counted under its name; the others are not."""
-    monkeypatch.setitem(spmd.STAGED, ("gloo", "cpu"), frozenset({"all_gather"}))
+    monkeypatch.setitem(world.STAGED, ("gloo", "cpu"), frozenset({"all_gather"}))
     base = spmd.Mesh(np.zeros((1, 1), np.int64), ("x", "y"), "cpu")
     x = torch.arange(24.0).reshape(4, 6)
 
@@ -416,11 +403,11 @@ def test_staged_collectives_keep_values_and_count_their_bytes(monkeypatch):
         return spmd.psum(spmd.all_gather(b, "y", dim=-1), "x")
 
     with world.world("gloo", 1, address=f"tcp://127.0.0.1:{_free_port()}") as w:
-        spmd.reset_staged()
+        world.reset_staged()
         out = spmd.shard_map(body, w.place(base), (P("x", "y"),), P("x", "y"))(x)
-        assert torch.equal(spmd.full_tensor(out), x)
-        staged = spmd.staged_bytes()
-    spmd.reset_staged()
+        assert torch.equal(out.full_tensor(), x)
+        staged = world.staged_bytes()
+    world.reset_staged()
     assert staged == {"all_gather": 2 * x.nbytes}
 
 
@@ -477,8 +464,104 @@ def test_constraint_call_sites_leave_plain_outputs_bit_identical(arch, monkeypat
         assert torch.equal(a, b)
 
 
+# ------------------------------- the staged route on a gloo CPU world
+def _staged_worker(rank: int, port: int, out_dir: str) -> None:
+    """DTensor's own redistributions and ``spmd``'s collectives on a world
+    whose groups stage the all-gather through host memory (``world.STAGED``
+    forced for CPU blocks): each case's values against the whole tensor
+    every rank knows, and the bytes it staged."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+    import torch.distributed._functional_collectives as funcol
+
+    torch.set_num_threads(1)
+    world.STAGED[("gloo", "cpu")] = frozenset({"all_gather"})
+    x = torch.arange(48.0).reshape(8, 6)
+    report = {}
+    with world.world("gloo", N_RANKS, rank=rank, address=f"tcp://127.0.0.1:{port}"):
+        mesh = world.World("gloo", N_RANKS, rank).place(
+            spmd.Mesh(_mapple_ids((2, 2)), ("data", "model"), "cpu"))
+        dm = mesh.dist
+        report["backend"] = torch.distributed.get_backend()
+        me = dm.get_local_rank(1)
+        both = distribute_tensor(x, dm, [Shard(0), Shard(1)])
+        model = distribute_tensor(x, dm, [Replicate(), Shard(0)])
+        part = DTensor.from_local(x * (rank + 1), dm, [Partial(), Partial()], run_check=False)
+        total = x * sum(range(1, N_RANKS + 1))
+        cases = {
+            "shard_to_replicate": lambda: torch.equal(
+                model.redistribute(dm, [Replicate(), Replicate()]).to_local(), x),
+            "shard_to_shard": lambda: torch.equal(
+                model.redistribute(dm, [Replicate(), Shard(1)]).to_local(),
+                x.chunk(2, dim=1)[me]),
+            "partial_to_replicate": lambda: torch.equal(
+                part.redistribute(dm, [Replicate(), Replicate()]).to_local(), total),
+            "partial_to_shard": lambda: torch.equal(
+                part.redistribute(dm, [Replicate(), Shard(0)]).to_local(),
+                total.chunk(2)[me]),
+            "distribute_tensor": lambda: torch.equal(
+                distribute_tensor(x, dm, [Shard(0), Shard(1)]).to_local(),
+                x.chunk(2)[dm.get_local_rank(0)].chunk(2, dim=1)[me]),
+            "full_tensor": lambda: torch.equal(both.full_tensor(), x),
+            "funcol_all_gather": lambda: funcol.all_gather_tensor(
+                torch.full((2,), float(rank)), 0, (dm, 1)).wait().tolist()
+            == [float(r) for r in range(N_RANKS) if r // 2 == rank // 2 for _ in range(2)],
+            "spmd_all_gather": lambda: torch.equal(spmd.shard_map(
+                lambda b: spmd.all_gather(b, "model", dim=1), mesh, (P("data", "model"),),
+                P("data", None))(x).full_tensor(), x),
+        }
+        for name, case in cases.items():
+            world.reset_staged()
+            report[name] = [bool(case()), world.staged_bytes()]
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+@pytest.fixture(scope="module")
+def staged(tmp_path_factory):
+    out = tmp_path_factory.mktemp("staged")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, __file__, "staged", str(_free_port()), str(out)],
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(N_RANKS)]
+
+
+# Each case's staged bytes on a rank (down and back): an all-gather of b
+# bytes over g ranks moves b + g * b; a block of x (8 x 6 fp32) cut in two
+# is 96 bytes, in four 48.
+STAGED_CASES = {
+    "shard_to_replicate": {"all_gather": 96 + 192},
+    "shard_to_shard": {"all_gather": 96 + 192},     # CPU: DTensor gathers, then chunks
+    "partial_to_replicate": {},
+    "partial_to_shard": {},
+    "distribute_tensor": {},
+    "full_tensor": {"all_gather": (48 + 96) + (96 + 192)},
+    "funcol_all_gather": {"all_gather": 8 + 16},
+    "spmd_all_gather": {"all_gather": (48 + 96) + (96 + 192)},
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_staged_route_keeps_values_and_counts_each_gather(staged, case):
+    """On a world whose groups stage the all-gather (as a gloo world on
+    CUDA does), DTensor's own redistributions and ``full_tensor``, funcol's
+    and ``spmd``'s gathers give the whole values to the bit on every rank,
+    each all-gather's bytes counted (the check's gather of
+    ``spmd_all_gather`` too); all-reduce and reduce-scatter stage nothing."""
+    for rank, report in enumerate(staged):
+        assert report["backend"] == world.STAGED_BACKEND
+        ok, nbytes = report[case]
+        assert ok, (rank, case)
+        assert nbytes == STAGED_CASES[case], (rank, case, nbytes)
+
+
 if __name__ == "__main__":
-    _spawn(int(sys.argv[1]), sys.argv[2])
+    if sys.argv[1] == "staged":
+        import torch.multiprocessing as mp
+
+        mp.spawn(_staged_worker, args=(int(sys.argv[2]), sys.argv[3]), nprocs=N_RANKS,
+                 join=True)
+    else:
+        _spawn(int(sys.argv[1]), sys.argv[2])
 
 
 def test_count_books_each_collective_of_a_body_by_kind():
