@@ -1,0 +1,10 @@
+"""The flash_attention kernel's share of its roofline in a prefill, read from the
+program's ``kernel.flash_attention`` spans: the least time one launch could take
+(``bench/kernels.py`` from the cell's shapes, ``bench/peaks.py``) times the
+spans in the traced window, over the device time launched under them,
+whichever implementation runs (``bench/spans.py``), in %."""
+from bench import spans
+
+
+def read(r):
+    return spans.kernel_roofline(r, "flash_bf16", "kernel.flash_attention")

@@ -65,7 +65,6 @@ class Library:
 
 
 _LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
 _LOADED: Library | None = None
 
 
@@ -156,15 +155,6 @@ def load() -> Library:
         log = log_path.read_text() if log_path.exists() else ""
         _LOADED = Library(_bind(lib_path), lib_path, seconds, log)
         return _LOADED
-
-
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's launch count. Under a lock: the
-    tuning service's worker threads price on the card at once, and
-    ``+= 1`` on an attribute is a read-modify-write that the interpreter
-    lock does not make atomic."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1
 
 
 def check(lib: Library, err: int, what: str) -> None:

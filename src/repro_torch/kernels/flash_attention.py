@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch import tracing
 
 ENTRY = {torch.float32: "mapple_flash_attention_f32",
          torch.bfloat16: "mapple_flash_attention_bf16"}
@@ -81,8 +82,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ctypes.addressof(strides), B, S, H, Kv, d, scale, int(window),
         int(bool(causal)), stream)
     build.check(lib, err, "flash_attention")
-    build.count_launch(flash_attention_cuda)
+    tracing.count("kernel.flash_attention.launches")
     return out
 
-
-flash_attention_cuda.launches = 0

@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch import tracing
 
 STATE_SIZES = (4, 8, 16, 32)
 _GRID_Y_MAX = 65535            # one grid row per batch element
@@ -52,11 +53,9 @@ def mamba_scan_cuda(xs: torch.Tensor, dt: torch.Tensor, Bs: torch.Tensor,
         xs.data_ptr(), dt.data_ptr(), Bs.data_ptr(), Cs.data_ptr(), A.data_ptr(),
         y.data_ptr(), state.data_ptr(), B, T, di, n, stream)
     build.check(lib, err, "mamba_scan")
-    build.count_launch(mamba_scan_cuda)
+    tracing.count("kernel.mamba_scan.launches")
     return y, state
 
-
-mamba_scan_cuda.launches = 0
 
 
 def occupancy(n: int) -> tuple[int, int]:

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch import tracing
 
 DTYPES = {torch.float32: "mapple_matmul_f32",
           torch.bfloat16: "mapple_matmul_bf16"}
@@ -84,8 +85,6 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     err = getattr(lib.lib, DTYPES[a.dtype])(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), nbatch, m, n, k, stream)
     build.check(lib, err, "matmul")
-    build.count_launch(matmul_cuda)
+    tracing.count("kernel.matmul.launches")
     return out if n == n_out else out[..., :n_out]
 
-
-matmul_cuda.launches = 0

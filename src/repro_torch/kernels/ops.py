@@ -16,7 +16,9 @@ Training runs the plain path, as the reference does.
 
 Each kernel keeps one integer launch counter (``launch_counts``), raised
 only where its wrapper launches it, so a run can show that its path went
-through the kernels.
+through the kernels; the counters are ``kernel.<name>.launches`` of the
+port's tracing (``repro_torch/tracing.py``). Each call of an LM kernel entry
+point is a ``kernel.<name>`` span there, whichever version runs.
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import stencil as st_mod
 from repro_torch.kernels import wkv6 as wkv_mod
+from repro_torch import tracing
+
+KERNELS = ("matmul", "stencil", "segment_rowmax", "flash_attention", "mamba_scan", "wkv6")
 
 
 def _on_cpu(*xs: torch.Tensor) -> bool:
@@ -94,6 +99,7 @@ def flash_attention_plain(q, k, v, *, window: int = 0, scale=None,
     return out.reshape(B, H, S, hd).transpose(1, 2)
 
 
+@tracing.spanned("kernel.flash_attention")
 def flash_attention(q, k, v, *, window: int = 0, scale=None,
                     causal: bool = True) -> torch.Tensor:
     """Model-layout attention: q (B,S,H,hd), k/v (B,S,Kv,hd) -> (B,S,H,hd).
@@ -106,6 +112,7 @@ def flash_attention(q, k, v, *, window: int = 0, scale=None,
                                        causal=causal)
 
 
+@tracing.spanned("kernel.mamba_scan")
 def mamba_scan(xs, dt, Bs, Cs, A):
     """Selective scan from a zero state: xs/dt (B,T,di), Bs/Cs (B,T,n),
     A (di,n) -> (y (B,T,di), final state (B,di,n))."""
@@ -129,6 +136,7 @@ def wkv6_plain(r, k, v, w, u):
     return y.reshape(B, H, S, N).transpose(1, 2), s.reshape(B, H, N, N)
 
 
+@tracing.spanned("kernel.wkv6")
 def wkv6(r, k, v, w, u):
     """RWKV-6 WKV from a zero state in the model layout: r/k/v/w (B,S,H,N)
     fp32, u (H,N) -> (y (B,S,H,N), final state (B,H,N,N)). There is no
@@ -141,19 +149,11 @@ def wkv6(r, k, v, w, u):
     return wkv_mod.wkv6_cuda(r, k, v, w, u)
 
 
-_COUNTED = {"matmul": mm_mod.matmul_cuda,
-            "stencil": st_mod.stencil_cuda,
-            "segment_rowmax": sr_mod.segment_rowmax_cuda,
-            "flash_attention": fa_mod.flash_attention_cuda,
-            "mamba_scan": ms_mod.mamba_scan_cuda,
-            "wkv6": wkv_mod.wkv6_cuda}
-
-
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    counts = tracing.counters()
+    return {name: counts.get(f"kernel.{name}.launches", 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    tracing.reset(*(f"kernel.{name}.launches" for name in KERNELS))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch import tracing
 
 ENTRY = {torch.float32: "mapple_segment_rowmax_f32",
          torch.float64: "mapple_segment_rowmax_f64"}
@@ -44,8 +45,6 @@ def segment_rowmax_cuda(vals: torch.Tensor, seg: int = 1) -> torch.Tensor:
     err = getattr(lib.lib, ENTRY[vals.dtype])(
         vals.data_ptr(), out.data_ptr(), rows, cols, seg, stream)
     build.check(lib, err, "segment_rowmax")
-    build.count_launch(segment_rowmax_cuda)
+    tracing.count("kernel.segment_rowmax.launches")
     return out
 
-
-segment_rowmax_cuda.launches = 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch import tracing
 
 _INT_MAX = 2**31 - 1
 _GRID_MAX = 65535
@@ -50,8 +51,6 @@ def stencil_cuda(x: torch.Tensor, *, interior: bool) -> torch.Tensor:
     err = lib.lib.mapple_stencil_f32(x.data_ptr(), out.data_ptr(), nbatch,
                                      h, w, h_out, w_out, offset, stream)
     build.check(lib, err, "stencil")
-    build.count_launch(stencil_cuda)
+    tracing.count("kernel.stencil.launches")
     return out
 
-
-stencil_cuda.launches = 0

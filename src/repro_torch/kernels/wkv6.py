@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch import tracing
 
 HEAD_SIZES = (16, 32, 64)
 _GRID_MAX = 2 ** 31 - 1        # one grid row per (batch, head)
@@ -58,11 +59,9 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y.data_ptr(), state.data_ptr(), ctypes.addressof(strides), B, T, H, N,
         stream)
     build.check(lib, err, "wkv6")
-    build.count_launch(wkv6_cuda)
+    tracing.count("kernel.wkv6.launches")
     return y, state
 
-
-wkv6_cuda.launches = 0
 
 
 def occupancy(N: int) -> tuple[int, int]:

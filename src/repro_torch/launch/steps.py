@@ -33,6 +33,7 @@ from repro_torch.models import loops
 from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch import tracing
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.loop import TrainState, value_and_grad
 
@@ -164,7 +165,8 @@ def make_prefill_step(model, use_kernel: bool = True) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params, inputs):
-        return model.last_logits(params, inputs, use_kernel=use_kernel)
+        with tracing.step("step.prefill"):
+            return model.last_logits(params, inputs, use_kernel=use_kernel)
 
     return prefill_step
 
@@ -175,7 +177,8 @@ def make_serve_step(model) -> Callable:
 
     @torch.no_grad()
     def serve_step(params, cache, pos, token):
-        return model.decode_step(params, cache, pos, token)
+        with tracing.step("step.decode"):
+            return model.decode_step(params, cache, pos, token)
 
     return serve_step
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers, loops
+from repro_torch.models.layers import weight
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (decode_layer, layer_barrier, logits_sharded,
                                          merge_heads, proj, residual)
@@ -43,6 +44,7 @@ from repro_torch.models.transformer import (
     attention_schema,
     remat_apply,
 )
+from repro_torch import tracing
 
 SWA_WINDOW = 1024
 DT_RANK = 48
@@ -90,6 +92,7 @@ def _causal_conv(x, kernel, conv_state=None):
     return y, xp[:, -(W - 1):, :]
 
 
+@tracing.spanned("ssm")
 def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
                 use_kernel: bool = False):
     """Selective SSM. x: (B,S,D). state: (B,di,n) or None.
@@ -102,17 +105,17 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
     dt_ = x.dtype
     di = d_inner(cfg)
     n = cfg.ssm_state
-    xz = proj(x, params["w_in"].to(dt_))
+    xz = proj(x, weight(params["w_in"], dt_))
     xs, z = torch.chunk(xz, 2, dim=-1)
-    xs, conv_state = _causal_conv(xs, params["conv"].to(dt_), conv_state)
+    xs, conv_state = _causal_conv(xs, weight(params["conv"], dt_), conv_state)
     xs = F.silu(xs)
-    bc = proj(xs, params["w_bc"].to(dt_))
+    bc = proj(xs, weight(params["w_bc"], dt_))
     B_ssm, C_ssm = torch.chunk(bc, 2, dim=-1)            # (B,S,n)
-    dt_raw = proj(proj(xs, params["w_dt"].to(dt_)), params["w_dt_out"].to(dt_))
+    dt_raw = proj(proj(xs, weight(params["w_dt"], dt_)), weight(params["w_dt_out"], dt_))
     dt = F.softplus(
-        dt_raw.to(torch.float32) + params["dt_bias"].to(torch.float32)
+        dt_raw.to(torch.float32) + weight(params["dt_bias"], torch.float32)
     )                                                   # (B,S,di)
-    A = -torch.exp(params["A_log"].to(torch.float32))   # (di,n)
+    A = -torch.exp(weight(params["A_log"], torch.float32))   # (di,n)
     if state is None:
         if use_kernel:
             from repro_torch.kernels import ops as kops
@@ -121,9 +124,9 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
                 xs.to(torch.float32), dt,
                 B_ssm.to(torch.float32), C_ssm.to(torch.float32), A,
             )
-            y = y32.to(dt_) + xs * params["D"].to(dt_)
+            y = y32.to(dt_) + xs * weight(params["D"], dt_)
             y = y * F.silu(z)
-            return proj(y, params["w_out"].to(dt_)), state, conv_state
+            return proj(y, weight(params["w_out"], dt_)), state, conv_state
         state = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
 
     # Discretize inside the step (never a (B,S,di,n) tensor), as the
@@ -139,9 +142,9 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
         state = dA_t * state + dBx_t
         ys.append(torch.einsum("bdn,bn->bd", state, C_t))
     y = loops.stack(ys, S, dim=1).to(dt_)                # (B,S,di)
-    y = y + xs * params["D"].to(dt_)
+    y = y + xs * weight(params["D"], dt_)
     y = y * F.silu(z)
-    return proj(y, params["w_out"].to(dt_)), state, conv_state
+    return proj(y, weight(params["w_out"], dt_)), state, conv_state
 
 
 # ------------------------------------------------------------------- layer
@@ -198,23 +201,28 @@ class HymbaLM(nn.Module):
     # ------------------------------------------------------------- forward
     def hidden_states(self, params, tokens, *, use_kernel=False, remat=True):
         cfg = self.cfg
-        x = residual(layers.embed(params["embed"], tokens, _dtype(cfg)))
+        with tracing.span("embed"):
+            x = residual(layers.embed(params["embed"], tokens, _dtype(cfg)))
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         for p in unstack(params["layers"]):
-            x = residual(remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
-                                     positions, use_kernel))
-        return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
+            with tracing.span("layer"):
+                x = residual(remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
+                                         positions, use_kernel))
+        with tracing.span("head"):
+            return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
     def logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                     remat=remat)
-        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x)), aux
+        with tracing.span("head"):
+            return logits_sharded(layers.unembed({"table": params["lm_head"]}, x)), aux
 
     def last_logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                   remat=remat)
-        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x[:, -1:]))
+        with tracing.span("head"):
+            return logits_sharded(layers.unembed({"table": params["lm_head"]}, x[:, -1:]))
 
     def loss(self, params, batch, *, use_kernel=False, remat=True):
         logits, _ = self.logits(params, batch["inputs"], use_kernel=use_kernel,
@@ -243,31 +251,35 @@ class HymbaLM(nn.Module):
         """One decode step; the cache is updated in place and returned."""
         cfg = self.cfg
         dt = _dtype(cfg)
-        x = layers.embed_token(params["embed"], tokens, dt)
+        with tracing.span("embed"):
+            x = layers.embed_token(params["embed"], tokens, dt)
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         slot = pos % cache["k"].shape[2]
         for i in range(cfg.n_layers):
-            p = decode_layer(layer(params["layers"], i), x)
-            c = layer(cache, i)
-            h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
-            # --- attention side (ring-buffer SWA cache)
-            ap = p["attn"]
-            q, k, v = _qkv(ap, h, cfg, positions)
-            k_c = _cache_update(c["k"], k[:, 0], slot)
-            v_c = _cache_update(c["v"], v[:, 0], slot)
-            a = layers.decode_attention(q, k_c, v_c, pos,
-                                        window=cfg.sliding_window)
-            a = proj(merge_heads(a), ap["wo"].to(dt))
-            # --- mamba side
-            m, ssm, conv = mamba_mixer(p["mamba"], h, cfg, state=c["ssm"],
-                                       conv_state=c["conv"])
-            c["ssm"].copy_(ssm)
-            c["conv"].copy_(conv)
-            a = layers.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
-            m = layers.rmsnorm(p["mamba_out_norm"], m, cfg.norm_eps)
-            x = x + 0.5 * (a + m)
-            hh = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-            x = x + layers.swiglu(p["mlp"], hh)
-        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = layers.unembed({"table": params["lm_head"]}, x)
+            with tracing.span("layer"):
+                p = decode_layer(layer(params["layers"], i), x)
+                c = layer(cache, i)
+                h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
+                # --- attention side (ring-buffer SWA cache)
+                with tracing.span("attn"):
+                    ap = p["attn"]
+                    q, k, v = _qkv(ap, h, cfg, positions)
+                    k_c = _cache_update(c["k"], k[:, 0], slot)
+                    v_c = _cache_update(c["v"], v[:, 0], slot)
+                    a = layers.decode_attention(q, k_c, v_c, pos,
+                                                window=cfg.sliding_window)
+                    a = proj(merge_heads(a), weight(ap["wo"], dt))
+                # --- mamba side
+                m, ssm, conv = mamba_mixer(p["mamba"], h, cfg, state=c["ssm"],
+                                           conv_state=c["conv"])
+                c["ssm"].copy_(ssm)
+                c["conv"].copy_(conv)
+                a = layers.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
+                m = layers.rmsnorm(p["mamba_out_norm"], m, cfg.norm_eps)
+                x = x + 0.5 * (a + m)
+                hh = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+                x = x + layers.swiglu(p["mlp"], hh)
+        with tracing.span("head"):
+            x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = layers.unembed({"table": params["lm_head"]}, x)
         return logits, cache

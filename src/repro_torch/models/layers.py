@@ -27,6 +27,7 @@ from repro_torch.core import spmd
 from repro_torch.models import loops
 from repro_torch.models import sharding as shd
 from repro_torch.models.params import ParamDef, normal_init, ones_init
+from repro_torch import tracing
 
 # Above this sequence length attention always takes the online-softmax
 # chunked path (never materialize a (B,H,S,S) fp32 score tensor).
@@ -34,6 +35,17 @@ CHUNK_THRESHOLD = 2048
 Q_CHUNK = 1024
 KV_CHUNK = 1024
 NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------- weights
+def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w.to(dtype)`` for a parameter leaf. While a profiler records, a
+    cast that changes the dtype is a ``cast.weight`` span; a no-op cast
+    opens none."""
+    if tracing.profiling() and w.dtype != dtype:
+        with tracing.span("cast.weight"):
+            return w.to(dtype)
+    return w.to(dtype)
 
 
 # ------------------------------------------------------------------- norms
@@ -46,7 +58,7 @@ def rmsnorm(params, x, eps: float = 1e-5):
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].to(torch.float32)).to(dtype)
+    return (y * weight(params["scale"], torch.float32)).to(dtype)
 
 
 # ------------------------------------------------------------------ rotary
@@ -233,6 +245,7 @@ def _sp_attention_applicable(q, k) -> bool:
     )
 
 
+@tracing.spanned("attn.core")
 def attention(q, k, v, *, window: int = 0, scale: float | None = None,
               use_kernel: bool = False):
     """The reference's ``attention(use_pallas=)``: the flash kernel with
@@ -319,6 +332,7 @@ def _sp_decode_applicable(q, k_cache) -> bool:
     return Kv % ep != 0 and C % ep == 0 and B % dp == 0
 
 
+@tracing.spanned("attn.core")
 def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
                      scale: float | None = None):
     """One-token attention against a cache.
@@ -354,12 +368,13 @@ def swiglu_schema(d_model: int, d_ff: int) -> dict:
     }
 
 
+@tracing.spanned("mlp")
 def swiglu(params, x):
     dtype = x.dtype
-    g = shd.proj(x, params["w_gate"].to(dtype))
-    u = shd.proj(x, params["w_up"].to(dtype))
+    g = shd.proj(x, weight(params["w_gate"], dtype))
+    u = shd.proj(x, weight(params["w_up"], dtype))
     h = F.silu(g) * u
-    return shd.proj(h, params["w_down"].to(dtype))
+    return shd.proj(h, weight(params["w_down"], dtype))
 
 
 # --------------------------------------------------------------- embedding
@@ -390,7 +405,7 @@ def embed_token(params, ids, dtype):
 
 
 def unembed(params, x, table=None):
-    t = (table if table is not None else params["table"]).to(x.dtype)
+    t = weight(table if table is not None else params["table"], x.dtype)
     return shd.proj(x, t.T)
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers, loops
+from repro_torch.models.layers import weight
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (decode_layer, layer_barrier, logits_sharded,
                                          merge_heads, proj, residual, split_heads,
@@ -34,6 +35,7 @@ from repro_torch.models.params import (
     param_count,
     unstack,
 )
+from repro_torch import tracing
 from repro_torch.models.transformer import _dtype, _stack, remat_apply
 
 HEAD_DIM = 64
@@ -183,6 +185,7 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = 64):
     return y, state
 
 
+@tracing.spanned("ssm")
 def timemix(params, x, cfg: ModelConfig, state=None, x_prev=None,
             use_kernel: bool = False):
     """x: (B,S,D). state: (B,H,N,N) initial WKV state (decode) or None.
@@ -197,20 +200,20 @@ def timemix(params, x, cfg: ModelConfig, state=None, x_prev=None,
     f32 = torch.float32
     if x_prev is None:
         x_prev = _shift(x)
-    xr = _lerp(x, x_prev, params["mu_r"].to(dt))
-    xk = _lerp(x, x_prev, params["mu_k"].to(dt))
-    xv = _lerp(x, x_prev, params["mu_v"].to(dt))
-    xw = _lerp(x, x_prev, params["mu_w"].to(dt))
-    xg = _lerp(x, x_prev, params["mu_g"].to(dt))
-    r = split_heads(proj(xr, params["w_r"].to(dt)), H, N).to(f32)
-    k = split_heads(proj(xk, params["w_k"].to(dt)), H, N).to(f32)
-    v = split_heads(proj(xv, params["w_v"].to(dt)), H, N).to(f32)
-    g = F.silu(proj(xg, params["w_g"].to(dt)))
+    xr = _lerp(x, x_prev, weight(params["mu_r"], dt))
+    xk = _lerp(x, x_prev, weight(params["mu_k"], dt))
+    xv = _lerp(x, x_prev, weight(params["mu_v"], dt))
+    xw = _lerp(x, x_prev, weight(params["mu_w"], dt))
+    xg = _lerp(x, x_prev, weight(params["mu_g"], dt))
+    r = split_heads(proj(xr, weight(params["w_r"], dt)), H, N).to(f32)
+    k = split_heads(proj(xk, weight(params["w_k"], dt)), H, N).to(f32)
+    v = split_heads(proj(xv, weight(params["w_v"], dt)), H, N).to(f32)
+    g = F.silu(proj(xg, weight(params["w_g"], dt)))
     # data-dependent decay in (0, 1)
-    wdec = params["w0"].to(f32) + proj(torch.tanh(
-        proj(xw.to(f32), params["wA"].to(f32))), params["wB"].to(f32))
+    wdec = weight(params["w0"], f32) + proj(torch.tanh(
+        proj(xw.to(f32), weight(params["wA"], f32))), weight(params["wB"], f32))
     w = split_heads(torch.exp(-torch.exp(wdec)), H, N)
-    u = split_heads(params["u"].to(f32), H, N)
+    u = split_heads(weight(params["u"], f32), H, N)
     if state is None and use_kernel:
         from repro_torch.kernels import ops as kops
 
@@ -226,19 +229,20 @@ def timemix(params, x, cfg: ModelConfig, state=None, x_prev=None,
     y = merge_heads(y).to(dt)
     # per-head group norm (approximated by rms over head dim groups)
     y = layers.rmsnorm({"scale": params["ln_scale"]}, y, cfg.norm_eps)
-    out = proj(y * g, params["w_o"].to(dt))
+    out = proj(y * g, weight(params["w_o"], dt))
     return out, state, x[:, -1]
 
 
+@tracing.spanned("mlp")
 def channelmix(params, x, cfg: ModelConfig, x_prev=None):
     dt = x.dtype
     if x_prev is None:
         x_prev = _shift(x)
-    xr = _lerp(x, x_prev, params["mu_r"].to(dt))
-    xk = _lerp(x, x_prev, params["mu_k"].to(dt))
-    r = torch.sigmoid(proj(xr, params["w_r"].to(dt)))
-    k = torch.square(torch.relu(proj(xk, params["w_k"].to(dt))))
-    return r * proj(k, params["w_v"].to(dt)), x[:, -1]
+    xr = _lerp(x, x_prev, weight(params["mu_r"], dt))
+    xk = _lerp(x, x_prev, weight(params["mu_k"], dt))
+    r = torch.sigmoid(proj(xr, weight(params["w_r"], dt)))
+    k = torch.square(torch.relu(proj(xk, weight(params["w_k"], dt))))
+    return r * proj(k, weight(params["w_v"], dt)), x[:, -1]
 
 
 def block_apply(p, x, cfg: ModelConfig, use_kernel: bool = False):
@@ -273,21 +277,26 @@ class RWKV6LM(nn.Module):
     # ------------------------------------------------------------- forward
     def hidden_states(self, params, tokens, *, use_kernel=False, remat=True):
         cfg = self.cfg
-        x = residual(layers.embed(params["embed"], tokens, _dtype(cfg)))
+        with tracing.span("embed"):
+            x = residual(layers.embed(params["embed"], tokens, _dtype(cfg)))
         for p in unstack(params["layers"]):
-            x = residual(remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
-                                     use_kernel))
-        return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
+            with tracing.span("layer"):
+                x = residual(remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
+                                         use_kernel))
+        with tracing.span("head"):
+            return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
 
     def logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, aux = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                     remat=remat)
-        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x)), aux
+        with tracing.span("head"):
+            return logits_sharded(layers.unembed({"table": params["lm_head"]}, x)), aux
 
     def last_logits(self, params, tokens, *, use_kernel=False, remat=True):
         x, _ = self.hidden_states(params, tokens, use_kernel=use_kernel,
                                   remat=remat)
-        return logits_sharded(layers.unembed({"table": params["lm_head"]}, x[:, -1:]))
+        with tracing.span("head"):
+            return logits_sharded(layers.unembed({"table": params["lm_head"]}, x[:, -1:]))
 
     def loss(self, params, batch, *, use_kernel=False, remat=True):
         logits, _ = self.logits(params, batch["inputs"], use_kernel=use_kernel,
@@ -315,21 +324,24 @@ class RWKV6LM(nn.Module):
         layer's slice of the cache is updated in place and the cache
         returned. ``pos`` is unused: the state carries the position."""
         cfg = self.cfg
-        x = layers.embed_token(params["embed"], tokens, _dtype(cfg))    # (B,1,D)
+        with tracing.span("embed"):
+            x = layers.embed_token(params["embed"], tokens, _dtype(cfg))    # (B,1,D)
         for i in range(cfg.n_layers):
-            p = decode_layer(layer(params["layers"], i), x)
-            c = layer(cache, i)
-            h = layers.rmsnorm(p["tm_norm"], x, cfg.norm_eps)
-            out, wkv, tm_new = timemix(p["tm"], h, cfg, state=c["wkv"],
-                                       x_prev=c["tm_prev"][:, None, :])
-            c["wkv"].copy_(wkv)
-            c["tm_prev"].copy_(tm_new)
-            x = x + out
-            h = layers.rmsnorm(p["cm_norm"], x, cfg.norm_eps)
-            out, cm_new = channelmix(p["cm"], h, cfg,
-                                     x_prev=c["cm_prev"][:, None, :])
-            c["cm_prev"].copy_(cm_new)
-            x = x + out
-        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = layers.unembed({"table": params["lm_head"]}, x)
+            with tracing.span("layer"):
+                p = decode_layer(layer(params["layers"], i), x)
+                c = layer(cache, i)
+                h = layers.rmsnorm(p["tm_norm"], x, cfg.norm_eps)
+                out, wkv, tm_new = timemix(p["tm"], h, cfg, state=c["wkv"],
+                                           x_prev=c["tm_prev"][:, None, :])
+                c["wkv"].copy_(wkv)
+                c["tm_prev"].copy_(tm_new)
+                x = x + out
+                h = layers.rmsnorm(p["cm_norm"], x, cfg.norm_eps)
+                out, cm_new = channelmix(p["cm"], h, cfg,
+                                         x_prev=c["cm_prev"][:, None, :])
+                c["cm_prev"].copy_(cm_new)
+                x = x + out
+        with tracing.span("head"):
+            x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = layers.unembed({"table": params["lm_head"]}, x)
         return logits, cache

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import spmd
 from repro_torch.models.params import tree_map
+from repro_torch import tracing
 
 BATCH_AXES = ("pod", "data")
 MODEL_AXIS = "model"
@@ -147,7 +148,17 @@ def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     parallelism does and XLA's partitioner did for the reference; left
     to itself DTensor picks by its cost model, and torch 2.11 picked a
     partial sum that a bias cannot be added to. Any other x is
-    multiplied as it is."""
+    multiplied as it is. While a profiler records, each call is a
+    ``gemm`` span and adds 2 x rows x D x F to the counter ``gemm.flops``
+    (with none, one check: the decode step makes 385 products a step)."""
+    if tracing.profiling():
+        tracing.count("gemm.flops", 2 * x.numel() * w.shape[-1])
+        with tracing.span("gemm"):
+            return _proj(x, w)
+    return _proj(x, w)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _is_dtensor(x) and x.ndim == 3 and w.ndim == 2:
         if _is_dtensor(w):
             clash = [m for m, (a, b) in enumerate(zip(x.placements, w.placements))

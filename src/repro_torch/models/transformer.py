@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, moe
+from repro_torch.models.layers import weight
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (BATCH_AXES, constrain, decode_layer, layer_barrier,
                                          logits_sharded, merge_heads, proj, residual,
@@ -41,6 +42,7 @@ from repro_torch.models.params import (
     param_count,
     unstack,
 )
+from repro_torch import tracing
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -133,13 +135,13 @@ def _qkv(params, x, cfg: ModelConfig, positions):
     """Projected, biased and rotated q (B,S,H,hd) and k (B,S,Kv,hd), and v."""
     dt = x.dtype
     hd = cfg.resolved_head_dim
-    q = proj(x, params["wq"].to(dt))
-    k = proj(x, params["wk"].to(dt))
-    v = proj(x, params["wv"].to(dt))
+    q = proj(x, weight(params["wq"], dt))
+    k = proj(x, weight(params["wk"], dt))
+    v = proj(x, weight(params["wv"], dt))
     if cfg.qkv_bias:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + weight(params["bq"], dt)
+        k = k + weight(params["bk"], dt)
+        v = v + weight(params["bv"], dt)
     q = layers.apply_rope(split_heads(q, cfg.n_heads, hd), positions, cfg.rope_theta)
     k = layers.apply_rope(split_heads(k, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
     return q, k, split_heads(v, cfg.n_kv_heads, hd)
@@ -150,11 +152,11 @@ def _mla_q_latent(params, x, cfg: ModelConfig, positions):
     latents: the normed c_kv (B,S,rank) and the rotated shared k_rope head
     (B,S,1,rope)."""
     dt = x.dtype
-    q = split_heads(proj(x, params["wq"].to(dt)), cfg.n_heads,
+    q = split_heads(proj(x, weight(params["wq"], dt)), cfg.n_heads,
                     cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     q = torch.cat([q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
-    c_kv, k_rope = torch.split(proj(x, params["w_dkv"].to(dt)),
+    c_kv, k_rope = torch.split(proj(x, weight(params["w_dkv"], dt)),
                                [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     c_kv = layers.rmsnorm({"scale": params["kv_norm"]}, c_kv, cfg.norm_eps)
     k_rope = layers.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -166,8 +168,8 @@ def _mla_kv(params, c_kv, k_rope, cfg: ModelConfig):
     (B,C,rank) and the shared k_rope head (B,C,1,rope)."""
     B, C, _ = c_kv.shape
     H, dt = cfg.n_heads, c_kv.dtype
-    k_nope = split_heads(proj(c_kv, params["w_uk"].to(dt)), H, cfg.qk_nope_dim)
-    v = split_heads(proj(c_kv, params["w_uv"].to(dt)), H, cfg.v_head_dim)
+    k_nope = split_heads(proj(c_kv, weight(params["w_uk"], dt)), H, cfg.qk_nope_dim)
+    v = split_heads(proj(c_kv, weight(params["w_uv"], dt)), H, cfg.v_head_dim)
     k = torch.cat([k_nope, k_rope.expand(B, C, H, cfg.qk_rope_dim)], dim=-1)
     return k, v
 
@@ -176,6 +178,7 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
 
 
+@tracing.spanned("attn")
 def attention_block(params, x, cfg: ModelConfig, positions, use_kernel=False):
     if cfg.use_mla:
         if use_kernel:
@@ -190,12 +193,12 @@ def attention_block(params, x, cfg: ModelConfig, positions, use_kernel=False):
         k, v = _mla_kv(params, c_kv, k_rope, cfg)
         out = layers.attention(q, k, v, window=cfg.sliding_window,
                                scale=_mla_scale(cfg))
-        return proj(merge_heads(out), params["wo"].to(x.dtype))
+        return proj(merge_heads(out), weight(params["wo"], x.dtype))
     q, k, v = _qkv(params, x, cfg, positions)
     out = layers.attention(q, k, v, window=cfg.sliding_window,
                            use_kernel=use_kernel)
     out = constrain(merge_heads(out), BATCH_AXES, None, "model")
-    return proj(out, params["wo"].to(x.dtype))
+    return proj(out, weight(params["wo"], x.dtype))
 
 
 def _ffn(params, h, cfg: ModelConfig):
@@ -262,22 +265,26 @@ class DecoderLM(nn.Module):
         (final hidden states, the MoE layers' summed aux loss)."""
         cfg = self.cfg
         dt = _dtype(cfg)
-        if cfg.stub_frontend:
-            x = inputs.to(dt)
-        else:
-            x = layers.embed(params["embed"], inputs, dt)
-        x = residual(x)
+        with tracing.span("embed"):
+            if cfg.stub_frontend:
+                x = inputs.to(dt)
+            else:
+                x = layers.embed(params["embed"], inputs, dt)
+            x = residual(x)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         aux_total = 0.0
         for key, _, _ in _stacks(cfg):
             for p in unstack(params[key]):
-                x, aux = remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
-                                     positions, use_kernel)
+                with tracing.span("layer"):
+                    x, aux = remat_apply(block_apply, remat, layer_barrier(p), x, cfg,
+                                         positions, use_kernel)
                 aux_total = aux_total + aux
-        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        with tracing.span("head"):
+            x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux_total
 
+    @tracing.spanned("head")
     def _unembed(self, params, x):
         cfg = self.cfg
         logits = layers.unembed({"table": _head_table(params)}, x)
@@ -328,24 +335,28 @@ class DecoderLM(nn.Module):
         dense prefix and the MoE suffix."""
         cfg = self.cfg
         dt = _dtype(cfg)
-        if cfg.stub_frontend:
-            x = token_or_embed.to(dt)                          # (B, 1, D)
-        else:
-            x = layers.embed_token(params["embed"], token_or_embed, dt)  # (B,1,D)
+        with tracing.span("embed"):
+            if cfg.stub_frontend:
+                x = token_or_embed.to(dt)                          # (B, 1, D)
+            else:
+                x = layers.embed_token(params["embed"], token_or_embed, dt)  # (B,1,D)
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         C = next(iter(cache.values())).shape[2]
         slot = pos % C if cfg.sliding_window > 0 else min(pos, C - 1)
         for i, p in enumerate(self._blocks(params)):
-            p = decode_layer(p, x)
-            h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-            attn_out = self._decode_attention(
-                p["attn"], h, cfg, positions, pos, slot, layer(cache, i))
-            x = x + attn_out
-            h = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-            x = x + _ffn(p, h, cfg)[0]
-        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            with tracing.span("layer"):
+                p = decode_layer(p, x)
+                h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+                attn_out = self._decode_attention(
+                    p["attn"], h, cfg, positions, pos, slot, layer(cache, i))
+                x = x + attn_out
+                h = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+                x = x + _ffn(p, h, cfg)[0]
+        with tracing.span("head"):
+            x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._unembed(params, x), cache
 
+    @tracing.spanned("attn")
     def _decode_attention(self, params, x, cfg, positions, pos, slot, cache):
         if cfg.use_mla:
             q, c_kv, k_rope = _mla_q_latent(params, x, cfg, positions)
@@ -355,10 +366,10 @@ class DecoderLM(nn.Module):
             k, v = _mla_kv(params, ckv_cache, kr_cache[:, :, None, :], cfg)
             out = layers.decode_attention(q, k, v, pos, window=cfg.sliding_window,
                                           scale=_mla_scale(cfg))
-            return proj(merge_heads(out), params["wo"].to(x.dtype))
+            return proj(merge_heads(out), weight(params["wo"], x.dtype))
         q, k, v = _qkv(params, x, cfg, positions)
         k_cache = _cache_update(cache["k"], k[:, 0], slot)
         v_cache = _cache_update(cache["v"], v[:, 0], slot)
         out = layers.decode_attention(q, k_cache, v_cache, pos,
                                       window=cfg.sliding_window)
-        return proj(merge_heads(out), params["wo"].to(x.dtype))
+        return proj(merge_heads(out), weight(params["wo"], x.dtype))

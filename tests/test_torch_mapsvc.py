@@ -305,8 +305,8 @@ def test_launch_counters_and_exports_survive_concurrent_pricing():
     interval and more threads than cores, no count is lost and one
     schedule gets one export."""
     from repro_torch import apps
-    from repro_torch.kernels import build
-    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import ops
+    from repro_torch import tracing
     from repro_torch.sim import torch_backend as tb
     from repro_torch.sim.cost import time_search_space
 
@@ -314,14 +314,14 @@ def test_launch_counters_and_exports_survive_concurrent_pricing():
     space = time_search_space(apps.get("summa"), **TORCH)
     eng = space.cost_model(16, dict(space.default_options)).batch((4, 4))
     clear_caches()
-    before = sr.segment_rowmax_cuda.launches
+    before = ops.launch_counts()["segment_rowmax"]
     exports, start = [], threading.Barrier(n_threads)
 
     def work():
         start.wait(timeout=30.0)
         exports.append(tb._export_for(eng.schedule, eng.topology))
         for _ in range(per_thread):
-            build.count_launch(sr.segment_rowmax_cuda)
+            tracing.count("kernel.segment_rowmax.launches")
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -335,11 +335,12 @@ def test_launch_counters_and_exports_survive_concurrent_pricing():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     try:
-        assert sr.segment_rowmax_cuda.launches - before == n_threads * per_thread
+        assert ops.launch_counts()["segment_rowmax"] - before == n_threads * per_thread
         assert len({id(e) for e in exports}) == 1
         assert cache_stats()["torch_exports"]["misses"] == 1
     finally:
-        sr.segment_rowmax_cuda.launches = before
+        tracing.count("kernel.segment_rowmax.launches",
+                      before - ops.launch_counts()["segment_rowmax"])
 
 
 # --------------------------------------------------------------- rejections
