@@ -9,7 +9,8 @@ NVIDIA H100:
 1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
    and prints each kernel function's registers, shared memory and spill
    bytes from ptxas; a spill in the flash (bf16 and fp32), matmul (fp32
-   and bf16), mamba_scan or wkv6 kernels fails the run; counts ``HGMMA``
+   and bf16), mamba_scan, causal_conv or wkv6 kernels fails the run;
+   counts ``HGMMA``
    and ``UTMALDG`` in the bf16 matmul kernel's SASS (``cuobjdump -sass``)
    and fails if either is 0; then the recurrence kernels' registers per
    thread and resident warps per SM as the CUDA runtime reports them;
@@ -94,7 +95,12 @@ NVIDIA H100:
    causal, a misaligned operand); mamba_scan at the
    hymba prefill (B=4, T=2048, d_inner 3200, state 16), a ragged one and
    its tile edges (``MAMBA_EDGES``), fp32 (1e-4), timed beside the
-   exponentials' MUFU floor;
+   exponentials' MUFU floor; then Hymba's mixer kernels (the causal conv
+   + SiLU and the gated scan) at that shape and the hymba-prefill-32k
+   cell's (B=2, T=32768), on the mixer's layouts, bf16 (2e-2) and fp32
+   (1e-4) against their plain twins in ``ops`` (the conv's tail and the
+   scan's state too), timed in bf16 beside their twins, the operator
+   chain each replaced and the fp32 plain scan (``MIXER_SHAPES``);
 10. drives the LM serving path at hymba-1.5b's full width (at 8 of its
    32 layers, ``EARLIER_LM_LAYERS``; weights from a seeded generator on
    the card): the prefill step with the kernels (B=4, prompt 2048 > the
@@ -296,6 +302,8 @@ KERNELS = {
                         "replaces": "src/repro/kernels/flash_attention.py:79"},
     "mamba_scan": {"source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "replaces": "src/repro/kernels/mamba_scan.py:58"},
+    "causal_conv": {"source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+                    "replaces": "src/repro/models/hymba.py:95 (XLA ops, no Pallas kernel)"},
     "wkv6": {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
              "replaces": "src/repro/kernels/wkv6.py:59"},
 }
@@ -345,7 +353,8 @@ FLASH_F32_EDGES = [(2, 127, 4, 2, 64, 0, True, False), (2, 128, 4, 2, 64, 0, Tru
 NO_SPILL = {"flash_attention_bf16.cu": ("flash_bf16_kernel",),
             "flash_attention.cu": ("flash_f32_kernel",),
             "matmul.cu": ("sgemm_kernel", "hgemm_kernel"),
-            "mamba_scan.cu": ("mamba_scan_kernel",), "wkv6.cu": ("wkv6_kernel",)}
+            "mamba_scan.cu": ("mamba_scan_kernel",), "wkv6.cu": ("wkv6_kernel",),
+            "causal_conv.cu": ("causal_conv_silu_kernel",)}
 # The bf16 matmul kernel runs on the tensor cores and through TMA: its
 # SASS must hold these instructions (cuobjdump -sass of the built library).
 HGEMM_FUNCTION = "hgemm_kernel"
@@ -357,6 +366,11 @@ HGEMM_SASS = ("HGMMA", "UTMALDG")
 MAMBA_EDGES = [(2, 100, 200, 16), (2, 45, 96, 4), (2, 50, 100, 32), (1, 77, 70, 32)]
 WKV6_EDGES = [(2, 15, 3, 64), (1, 17, 2, 64), (2, 17, 3, 32), (3, 47, 2, 16), (1, 2, 5, 32),
               (1, 1, 3, 16)]
+# Hymba's mixer kernels (the causal conv + SiLU, the gated scan) at the LM
+# path's shape and the hymba-prefill-32k cell's (B=2, T=32768), d_inner
+# 3200, state 16, conv width 4.
+MIXER_SHAPES = ((4, 2048), (2, 32768))
+MIXER_DIMS = (3200, 16, 4)
 # The special-function unit's exponentials: 16 MUFU.EX2 results a clock
 # on each of the 132 SMs at the 1.98 GHz boost clock (published figures).
 MUFU_EX2_PER_S = 16 * 132 * 1.98e9
@@ -367,7 +381,8 @@ PREFILL_TOL = dict(rtol=1e-2, atol=5e-2)   # tests/test_kernels.py's mixer toler
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_models.py's decode check
 DECODE_PROMPT = 256
 DENSE_ARCH = "smollm-135m"
-LM_KERNELS = ("flash_attention", "mamba_scan", "wkv6")
+LM_KERNELS = ("flash_attention", "causal_conv", "mamba_scan", "wkv6")
+HYMBA_KERNELS = ("flash_attention", "causal_conv", "mamba_scan")
 # RWKV-6 serving: rwkv6-3b's prefill shape (40 heads of 64) and the bound,
 # stated before the run, on the fp32 kernel prefill's last logits against
 # the plain prefill's: max |diff| <= 1e-3.
@@ -436,7 +451,7 @@ RESTART_RTOL = 1e-6
 # DRYRUN_PARITY_LAYERS layers, in fp32, on the hidden states of every
 # position, within the prefill phases' limits. The phase must end within
 # DRYRUN_BUDGET_S.
-DRYRUN_CELLS = (("hymba-1.5b", "prefill_32k", 1, ("flash_attention", "mamba_scan")),
+DRYRUN_CELLS = (("hymba-1.5b", "prefill_32k", 1, HYMBA_KERNELS),
                 ("rwkv6-3b", "prefill_32k", 1, ("wkv6",)),
                 ("smollm-135m", "decode_32k", 32, ()))
 DRYRUN_COUNT_S = 30.0
@@ -1739,6 +1754,110 @@ def lm_kernel_phase() -> dict:
     }
 
 
+def mixer_kernel_phase() -> tuple[dict, dict]:
+    """Hymba's mixer kernels at ``MIXER_SHAPES`` on the mixer's layouts (xz's
+    and bc's halves read in place), bf16 and fp32, each against its plain
+    twin in ``ops`` (the conv's tail and the scan's state too); timed in
+    bf16 with their bounds, beside their plain twins, the operator chain
+    each replaced (the mixer's zero-state route before them) and the fp32
+    plain scan on the same values. Returns the conv's row and the gated
+    scan's, each at the cell's shape with the LM path's under ``lm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import causal_conv as cc_mod
+    from repro_torch.kernels import mamba_scan as ms_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models.hymba import _causal_conv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    di, n, W = MIXER_DIMS
+    conv_rows, scan_rows, err_c, err_s = [], [], 0.0, 0.0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    for B, T in MIXER_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            xz, w = randn(B, T, 2 * di).to(dtype), (0.5 * randn(W, di)).to(dtype)
+            dt_raw, bc = randn(B, T, di).to(dtype), (0.5 * randn(B, T, 2 * n)).to(dtype)
+            A, dt_bias = -torch.exp(0.3 * randn(di, n)), -1.5 + 0.1 * randn(di)
+            D = randn(di).to(dtype)
+            x, z = xz[..., :di], xz[..., di:]
+            xs, tail = cc_mod.causal_conv_silu_cuda(x, w)
+            xs_ref, tail_ref = ops.causal_conv_silu_plain(x, w)
+            args = (xs, dt_raw, bc[..., :n], bc[..., n:], A, dt_bias, D, z)
+            y, s = ms_mod.mamba_scan_gated_cuda(*args)
+            y_ref, s_ref = ops.mamba_scan_gated_plain(*args)
+            torch.cuda.synchronize()
+            tag_c = f"causal_conv {dt} B={B} T={T} di={di} W={W}"
+            tag_s = f"mamba_scan gated {dt} B={B} T={T} di={di} n={n}"
+            if not (torch.isfinite(xs.float()).all() and torch.isfinite(y.float()).all()):
+                fail(f"{tag_c} / {tag_s}: non-finite output")
+            e_c = max(check_close(tag_c + " y", xs, xs_ref, dt),
+                      check_close(tag_c + " tail", tail, tail_ref, dt))
+            e_s = max(check_close(tag_s + " y", y, y_ref, dt),
+                      check_close(tag_s + " state", s, s_ref, "float32"))
+            err_c, err_s = max(err_c, e_c), max(err_s, e_s)
+            print(f"parity {tag_c}: max_abs_err={e_c:.3e}")
+            print(f"parity {tag_s}: max_abs_err={e_s:.3e} (max |y| "
+                  f"{float(y_ref.float().abs().max()):.3e})")
+            del xs_ref, tail_ref, y_ref, s_ref
+            if dt != "bfloat16":
+                continue
+            es = xz.element_size()
+            conv_ms = time_ms(lambda: cc_mod.causal_conv_silu_cuda(x, w), reps=20)
+            conv_plain = time_ms(lambda: ops.causal_conv_silu_plain(x, w), reps=5)
+            conv_chain = time_ms(lambda: F.silu(_causal_conv(x, w)[0]), reps=5)
+            # x read and y written once, the weights read, the tail written.
+            nbytes = es * (2 * B * T * di + W * di + (W - 1) * B * di)
+            bnd, by = bound_ms((2 * W + 4) * B * T * di, nbytes, "float32")
+            print(f"time   {tag_c}: kernel {conv_ms:.4f} ms ({bnd / conv_ms:.1%} of bound), "
+                  f"plain {conv_plain:.4f} ms, the chain it replaced (_causal_conv + silu) "
+                  f"{conv_chain:.4f} ms, bound {bnd:.5f} ms ({by})")
+            conv_rows.append({"ms": conv_ms, "plain_ms": conv_plain, "chain_ms": conv_chain,
+                              "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                              "shape": [B, T, di, W], "dtype": dt})
+
+            def chain():       # the mixer's zero-state route before the gated scan
+                dtf = F.softplus(dt_raw.float() + dt_bias)
+                y32, _ = ms_mod.mamba_scan_cuda(xs.float(), dtf, bc[..., :n].float(),
+                                                bc[..., n:].float(), A)
+                return (y32.to(dtype) + xs * D) * F.silu(z)
+
+            f32 = (xs.float(), F.softplus(dt_raw.float() + dt_bias),
+                   bc[..., :n].float().contiguous(), bc[..., n:].float().contiguous(), A)
+            scan_ms = time_ms(lambda: ms_mod.mamba_scan_gated_cuda(*args), reps=10)
+            f32_ms = time_ms(lambda: ms_mod.mamba_scan_cuda(*f32), reps=10)
+            scan_chain = time_ms(chain, reps=5)
+            scan_plain = time_ms(lambda: ops.mamba_scan_gated_plain(*args), reps=1, warmup=0)
+            del f32
+            # xs, dt, z read and y written in bf16 with B and C; A, dt_bias,
+            # D read and the state written. Operations: the plain scan's 7
+            # an element and about 10 a (step, channel) for the softplus,
+            # the D skip and the gate.
+            elems = B * T * di * n
+            nbytes = es * (4 * B * T * di + 2 * B * T * n + di) + 4.0 * (di * n + di + B * di * n)
+            bnd, by = bound_ms(7.0 * elems + 10.0 * B * T * di, nbytes, "float32")
+            exp_ms = elems / MUFU_EX2_PER_S * 1e3
+            print(f"time   {tag_s}: kernel {scan_ms:.4f} ms ({bnd / scan_ms:.1%} of bound), "
+                  f"plain {scan_plain:.4f} ms, the chain it replaced (casts, softplus, the "
+                  f"fp32 scan, gate) {scan_chain:.4f} ms, the fp32 scan alone {f32_ms:.4f} "
+                  f"ms, bound {bnd:.5f} ms ({by}); the scan's exponentials take "
+                  f"{exp_ms:.5f} ms on the MUFU")
+            scan_rows.append({"ms": scan_ms, "plain_ms": scan_plain, "chain_ms": scan_chain,
+                              "float32_scan_ms": f32_ms, "library_ms": None,
+                              "bound_ms": bnd, "bound_by": by, "shape": [B, T, di, n],
+                              "dtype": dt})
+            del xz, dt_raw, bc, xs, y, s
+            torch.cuda.empty_cache()
+    conv_row = {**conv_rows[-1], "max_abs_err": err_c, "lm": conv_rows[0]}
+    scan_row = {**scan_rows[-1], "max_abs_err": err_s, "lm": scan_rows[0]}
+    return conv_row, scan_row
+
+
 def _wkv6_inputs(gen, B: int, T: int, H: int, N: int):
     """Drawn as tests/test_kernels.py::test_wkv6_shapes draws them: r, k, v
     at 0.5, w = sigmoid(.)*0.5+0.4, u at 0.1; the model layout."""
@@ -2396,9 +2515,9 @@ def train_launcher_phase() -> None:
 
 
 def train_guard_phase() -> None:
-    """use_kernel=True under autograd: the flash (smollm), selective scan
-    (Hymba's mixer) and WKV6 (RWKV-6) entry points raise, launching
-    nothing."""
+    """use_kernel=True under autograd: the flash (smollm), causal conv
+    (Hymba's mixer, its first kernel) and WKV6 (RWKV-6) entry points raise,
+    launching nothing."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2422,9 +2541,9 @@ def train_guard_phase() -> None:
     x = torch.randn((2, 64, hymba.cfg.d_model), device="cuda")
     calls = {"flash_attention": lambda: smollm.loss(sp, batch, use_kernel=True),
              "wkv6": lambda: rwkv.loss(rp, batch, use_kernel=True),
-             "mamba_scan": lambda: mamba_mixer({k: v[0] for k, v in
-                                                hp["layers"]["mamba"].items()},
-                                               x, hymba.cfg, use_kernel=True)}
+             "causal_conv": lambda: mamba_mixer({k: v[0] for k, v in
+                                                 hp["layers"]["mamba"].items()},
+                                                x, hymba.cfg, use_kernel=True)}
     ops.reset_launch_counts()
     for name, call in calls.items():
         try:
@@ -3242,6 +3361,7 @@ def main() -> int:
     rows = parity_and_timing(mm_shapes, stencil_block, stencil_field)
     rows.update(segment_rowmax_phase())
     rows.update(lm_kernel_phase())
+    rows["causal_conv"], rows["mamba_scan"]["gated"] = mixer_kernel_phase()
     rows.update(wkv6_kernel_phase())
     counts = apps_phase()
     bf16_paths = matmul_bf16_phase()
@@ -3266,9 +3386,10 @@ def main() -> int:
     counts["segment_rowmax"] = launches
     rows["segment_rowmax"]["launches_by_path"] = by_path
     torch.cuda.empty_cache()
-    lm_counts, lm_state = lm_prefill_phase(LM_ARCH, ("flash_attention", "mamba_scan"),
-                                           PREFILL_TOL, seed=1, n_layers=EARLIER_LM_LAYERS)
+    lm_counts, lm_state = lm_prefill_phase(LM_ARCH, HYMBA_KERNELS, PREFILL_TOL, seed=1,
+                                           n_layers=EARLIER_LM_LAYERS)
     counts["mamba_scan"] = lm_counts["mamba_scan"]
+    counts["causal_conv"] = lm_counts["causal_conv"]
     lm_decode_phase(lm_state, LM_ARCH)
     lm_serving_phase(lm_state, LM_ARCH)
     del lm_state
@@ -3304,7 +3425,8 @@ def main() -> int:
     production_cells_phase(smi)
     counts["flash_attention"] = sum(flash_paths.values())
     rows["flash_attention"]["launches_by_path"] = flash_paths
-    for name, arch in (("mamba_scan", LM_ARCH), ("wkv6", RWKV_ARCH)):
+    for name, arch in (("mamba_scan", LM_ARCH), ("causal_conv", LM_ARCH),
+                       ("wkv6", RWKV_ARCH)):
         rows[name]["launches_by_path"] = {arch: counts[name], "dryrun": dry[name]}
         counts[name] += dry[name]
     for name, err in dry_err.items():

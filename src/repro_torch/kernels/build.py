@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("matmul.cu", "stencil.cu", "segment_reduce.cu", "flash_attention.cu",
-           "flash_attention_bf16.cu", "mamba_scan.cu", "wkv6.cu", "errors.cu")
+           "flash_attention_bf16.cu", "mamba_scan.cu", "causal_conv.cu", "wkv6.cu",
+           "errors.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libmapple_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -45,6 +46,11 @@ SIGNATURES = {
     "mapple_flash_attention_bf16": (_VP,) * 5 + (_I,) * 5 + (_F, _I, _I, _VP),
     # xs, dt, Bs, Cs, A, y, state, B, T, di, n, stream
     "mapple_mamba_scan_f32": (_VP,) * 7 + (_I,) * 4 + (_VP,),
+    # xs, dt, Bs, Cs, A, dt_bias, D, z, y, state, row strides (5 x int64 on
+    # the host), B, T, di, n, dtype (0 fp32, 1 bf16), stream
+    "mapple_mamba_scan_gated": (_VP,) * 11 + (_I,) * 5 + (_VP,),
+    # x, k, tail, y, tail out, x's row stride, B, T, di, W, dtype, stream
+    "mapple_causal_conv_silu": (_VP,) * 5 + (_I64,) + (_I,) * 5 + (_VP,),
     # r, k, v, w, u, y, state, strides (12 x int64 on the host), B, T, H, N,
     # stream
     "mapple_wkv6_f32": (_VP,) * 8 + (_I,) * 4 + (_VP,),

@@ -9,9 +9,10 @@ tensors' device:
 
 No kernel has a backward (no Pallas kernel of the reference has a VJP
 either), so a kernel's output is not tracked by autograd: the CUDA
-branches of the LM kernels (flash attention, the selective scan, WKV6)
-raise a ``RuntimeError`` when autograd records and an input requires
-grad, rather than hand back a loss gradient that skips the kernel.
+branches of the LM kernels (flash attention, the selective scan, WKV6,
+the causal conv) raise a ``RuntimeError`` when autograd records and an
+input requires grad, rather than hand back a loss gradient that skips the
+kernel.
 Training runs the plain path, as the reference does.
 
 Each kernel keeps one integer launch counter (``launch_counts``), raised
@@ -23,7 +24,9 @@ point is a ``kernel.<name>`` span there, whichever version runs.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import causal_conv as cc_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
@@ -33,7 +36,8 @@ from repro_torch.kernels import stencil as st_mod
 from repro_torch.kernels import wkv6 as wkv_mod
 from repro_torch import tracing
 
-KERNELS = ("matmul", "stencil", "segment_rowmax", "flash_attention", "mamba_scan", "wkv6")
+KERNELS = ("matmul", "stencil", "segment_rowmax", "flash_attention", "mamba_scan", "wkv6",
+           "causal_conv")
 
 
 def _on_cpu(*xs: torch.Tensor) -> bool:
@@ -120,6 +124,61 @@ def mamba_scan(xs, dt, Bs, Cs, A):
         return ref.mamba_scan(xs, dt, Bs, Cs, A)
     _untracked("mamba_scan", xs, dt, Bs, Cs, A)
     return ms_mod.mamba_scan_cuda(xs, dt, Bs, Cs, A)
+
+
+def mamba_scan_gated_plain(xs, dt, Bs, Cs, A, dt_bias, D, z):
+    """The plain version of the gated scan: ``softplus(dt + dt_bias)``, the
+    scan (``ref.mamba_scan``) and ``(y + xs*D) * silu(z)``, all in fp32,
+    rounded once to xs's dtype."""
+    f32 = torch.float32
+    xf = xs.to(f32)
+    y, state = ref.mamba_scan(xf, F.softplus(dt.to(f32) + dt_bias.to(f32)), Bs.to(f32),
+                              Cs.to(f32), A)
+    return ((y + xf * D.to(f32)) * F.silu(z.to(f32))).to(xs.dtype), state
+
+
+@tracing.spanned("kernel.mamba_scan")
+def mamba_scan_gated(xs, dt, Bs, Cs, A, dt_bias, D, z):
+    """Hymba's mixer from its projections to ``w_out``, the scan's second
+    instantiation: xs, dt (the raw dt projection), z (B,T,di), Bs/Cs
+    (B,T,n), D (di,) in the model dtype, A (di,n) and dt_bias (di,) fp32 ->
+    (``(y + xs*D) * silu(z)`` (B,T,di) in the model dtype, where y is the
+    scan of xs with ``softplus(dt + dt_bias)``; final state (B,di,n)). The
+    kernel reads xs, dt, Bs, Cs and z in place (``bc``'s halves, ``xz``'s
+    second half)."""
+    if _on_cpu(xs, dt, Bs, Cs, A, dt_bias, D, z):
+        return mamba_scan_gated_plain(xs, dt, Bs, Cs, A, dt_bias, D, z)
+    _untracked("mamba_scan", xs, dt, Bs, Cs, A, dt_bias, D, z)
+    return ms_mod.mamba_scan_gated_cuda(xs, dt, Bs, Cs, A, dt_bias, D, z)
+
+
+def causal_conv_silu_plain(x, w, tail=None):
+    """The plain version: ``models/hymba.py``'s causal conv summed in fp32,
+    the SiLU, rounded once to x's dtype; the new tail is the conv's last
+    W-1 inputs."""
+    B, T, di = x.shape
+    W = w.shape[0]
+    pad = (torch.zeros((B, W - 1, di), dtype=x.dtype, device=x.device) if tail is None
+           else tail.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)                     # (B, T+W-1, di)
+    xf, wf = xp.to(torch.float32), w.to(torch.float32)
+    y = xf[:, 0:T] * wf[0]
+    for i in range(1, W):
+        y = y + xf[:, i:i + T] * wf[i]
+    return F.silu(y).to(x.dtype), xp[:, T:]
+
+
+@tracing.spanned("kernel.causal_conv")
+def causal_conv_silu(x, w, tail=None):
+    """``silu`` of the depthwise causal conv1d: x (B,T,di), w (W,di), tail
+    (B,W-1,di) of earlier inputs or None (zeros) -> (y (B,T,di) in x's
+    dtype, new tail (B,W-1,di)). The kernel reads x in place (the xs half
+    of ``xz``) and sums in fp32."""
+    named = (x, w) if tail is None else (x, w, tail)
+    if _on_cpu(*named):
+        return causal_conv_silu_plain(x, w, tail)
+    _untracked("causal_conv", *named)
+    return cc_mod.causal_conv_silu_cuda(x, w, tail)
 
 
 def wkv6_plain(r, k, v, w, u):

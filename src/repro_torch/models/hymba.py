@@ -7,8 +7,9 @@ omitted, as in the reference.
 
 The Mamba side keeps O(1) decode state (conv tail + SSM state), and the
 attention side uses a ring-buffer SWA cache. With ``use_kernel`` the
-prefill runs the hand-written flash-attention and selective-scan kernels
-(``repro_torch.kernels.ops``); decode stays on the plain recurrence.
+prefill runs the hand-written flash-attention, causal-conv and gated
+selective-scan kernels (``repro_torch.kernels.ops``); decode stays on the
+plain recurrence.
 ``loss`` and ``remat`` are the decoder's (``transformer.py``).
 """
 from __future__ import annotations
@@ -92,20 +93,43 @@ def _causal_conv(x, kernel, conv_state=None):
     return y, xp[:, -(W - 1):, :]
 
 
+def _mixer_kernels(params, xz, cfg: ModelConfig, conv_state):
+    """The zero-state mixer after its in-projection through the two kernels
+    either side of its projections: the causal conv with its SiLU, then the
+    gated scan (dt's bias and softplus, the scan, the D skip and the
+    ``silu(z)`` gate). Both read xz's halves in place, and the scan reads
+    bc's."""
+    from repro_torch.kernels import ops as kops
+
+    dt_ = xz.dtype
+    di, n = d_inner(cfg), cfg.ssm_state
+    xs, conv_state = kops.causal_conv_silu(xz[..., :di], weight(params["conv"], dt_),
+                                           conv_state)
+    bc = proj(xs, weight(params["w_bc"], dt_))
+    dt_raw = proj(proj(xs, weight(params["w_dt"], dt_)), weight(params["w_dt_out"], dt_))
+    A = -torch.exp(weight(params["A_log"], torch.float32))
+    y, state = kops.mamba_scan_gated(xs, dt_raw, bc[..., :n], bc[..., n:], A,
+                                     weight(params["dt_bias"], torch.float32),
+                                     weight(params["D"], dt_), xz[..., di:])
+    return proj(y, weight(params["w_out"], dt_)), state, conv_state
+
+
 @tracing.spanned("ssm")
 def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
                 use_kernel: bool = False):
     """Selective SSM. x: (B,S,D). state: (B,di,n) or None.
 
     Returns (out (B,S,D), new_state, new_conv_state). With use_kernel the
-    zero-state path runs the selective-scan kernel; decode (state given)
-    stays on the scan.
+    zero-state path runs the causal-conv and gated-scan kernels
+    (``_mixer_kernels``); decode (state given) stays on the scan.
     """
     B, S, D = x.shape
     dt_ = x.dtype
     di = d_inner(cfg)
     n = cfg.ssm_state
     xz = proj(x, weight(params["w_in"], dt_))
+    if use_kernel and state is None:
+        return _mixer_kernels(params, xz, cfg, conv_state)
     xs, z = torch.chunk(xz, 2, dim=-1)
     xs, conv_state = _causal_conv(xs, weight(params["conv"], dt_), conv_state)
     xs = F.silu(xs)
@@ -117,16 +141,6 @@ def mamba_mixer(params, x, cfg: ModelConfig, state=None, conv_state=None,
     )                                                   # (B,S,di)
     A = -torch.exp(weight(params["A_log"], torch.float32))   # (di,n)
     if state is None:
-        if use_kernel:
-            from repro_torch.kernels import ops as kops
-
-            y32, state = kops.mamba_scan(
-                xs.to(torch.float32), dt,
-                B_ssm.to(torch.float32), C_ssm.to(torch.float32), A,
-            )
-            y = y32.to(dt_) + xs * weight(params["D"], dt_)
-            y = y * F.silu(z)
-            return proj(y, weight(params["w_out"], dt_)), state, conv_state
         state = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
 
     # Discretize inside the step (never a (B,S,di,n) tensor), as the

@@ -41,8 +41,10 @@ The spans of an LM step, outermost first:
                                      (``layers.weight``)
   ``kernel.flash_attention``,        one call of a kernel entry point in
   ``kernel.mamba_scan``,             ``kernels/ops.py``, whichever version
-  ``kernel.wkv6``                    runs (CUDA or plain), with its wrapper's
-                                     layout work
+  ``kernel.causal_conv``,            runs (CUDA or plain), with its wrapper's
+  ``kernel.wkv6``                    layout work; the causal conv and both
+                                     scans (plain and gated) open theirs in
+                                     ``ssm``
 
 Counters. ``count(name, n)`` adds to an integer counter, safe from any
 thread; ``counters()`` reads them all.

@@ -15,6 +15,7 @@ import torch
 from repro_torch import apps
 from repro_torch.apps import validate
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import causal_conv as cc_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
@@ -338,6 +339,120 @@ def test_mamba_scan_kernel_reads_misaligned_rows(card):
     torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
 
 
+# ------------------------------------------------------ Hymba's mixer kernels
+# chip_smoke.py's LM shape and the hymba-prefill-32k cell's (d_inner 3200,
+# state 16, conv 4), then the edges: T = 1, T < W-1, T off the 8-step conv
+# chunk and the 32-step scan chunk, a ragged last 32-channel block, d_inner
+# off a multiple of 8 and of 4 (one element a copy), states 4 (bf16 rows
+# under 16 bytes), 8 and 32 (each with its own helper-warp layout).
+MIXER_SHAPES = [(4, 2048, 3200, 16, 4), (2, 32768, 3200, 16, 4)]
+MIXER_EDGES = [(1, 1, 16, 8, 4), (2, 2, 24, 8, 4), (3, 37, 100, 4, 4), (2, 50, 70, 32, 4),
+               (2, 45, 96, 4, 4), (2, 100, 200, 16, 4), (1, 77, 72, 32, 4), (2, 33, 64, 8, 4)]
+
+
+def _mixer_inputs(card, B, T, di, n, W, dtype, seed):
+    """The mixer's tensors in its own layouts: xz (B,T,2di) whose halves the
+    kernels read in place, bc (B,T,2n) likewise; dt_raw around the bias so
+    that softplus(dt_raw + dt_bias) lies near 0.2, with some entries past
+    torch's threshold of 20."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=card)
+
+    xz = randn(B, T, 2 * di).to(dtype)
+    w = (0.5 * randn(W, di)).to(dtype)
+    tail = randn(B, W - 1, di).to(dtype)
+    dt_raw = randn(B, T, di)
+    dt_raw[..., ::97] += 25.0
+    bc = (0.5 * randn(B, T, 2 * n)).to(dtype)
+    A = -torch.exp(0.3 * randn(di, n))
+    dt_bias = -1.5 + 0.1 * randn(di)
+    D = randn(di).to(dtype)
+    return xz, w, tail, dt_raw.to(dtype), bc, A, dt_bias, D
+
+
+@pytest.mark.parametrize("B,T,di,n,W", MIXER_SHAPES + MIXER_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_tail", [False, True])
+def test_causal_conv_kernel_matches_plain(card, B, T, di, n, W, dtype, with_tail):
+    """The conv + SiLU on xz's first half in place, against its plain twin:
+    y and the new tail (the conv's last W-1 inputs, exact)."""
+    xz, w, tail, *_ = _mixer_inputs(card, B, T, di, n, W, dtype, seed=T + W)
+    tail = tail if with_tail else None
+    y, new_tail = cc_mod.causal_conv_silu_cuda(xz[..., :di], w, tail)
+    y_ref, tail_ref = ops.causal_conv_silu_plain(xz[..., :di], w, tail)
+    torch.cuda.synchronize()
+    assert y.is_contiguous() and y.dtype == dtype and new_tail.shape == (B, W - 1, di)
+    torch.testing.assert_close(y, y_ref, **TOL[dtype])
+    torch.testing.assert_close(new_tail, tail_ref, rtol=0, atol=0)
+    assert ops.launch_counts()["causal_conv"] == 1
+
+
+@pytest.mark.parametrize("B,T,di,n,W", MIXER_SHAPES + MIXER_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_gated_kernel_matches_plain(card, B, T, di, n, W, dtype):
+    """The gated scan on the mixer's raw tensors (bc's halves and xz's second
+    half in place) against its plain twin: y and the final state."""
+    xz, _, _, dt_raw, bc, A, dt_bias, D = _mixer_inputs(card, B, T, di, n, W, dtype, seed=T)
+    xs = torch.nn.functional.silu(xz[..., :di].float()).to(dtype)
+    args = (xs, dt_raw, bc[..., :n], bc[..., n:], A, dt_bias, D, xz[..., di:])
+    y, s = ms_mod.mamba_scan_gated_cuda(*args)
+    y_ref, s_ref = ops.mamba_scan_gated_plain(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, **TOL[dtype])
+    torch.testing.assert_close(s, s_ref, **TOL[torch.float32])
+    assert ops.launch_counts()["mamba_scan"] == 1
+
+
+def test_mixer_kernels_refuse_what_they_do_not_take(card):
+    """Each wrapper raises before any launch on a dtype, shape or stride it
+    does not read: fp16, mixed dtypes, W = 5 and 3, a state of 12, a transposed
+    view, channels at a stride, rows unevenly spaced across the batch, a
+    non-contiguous D, a CPU tensor."""
+    B, T, di, n, W = 2, 40, 64, 16, 4
+    xz, w, tail, dt_raw, bc, A, dt_bias, D = _mixer_inputs(card, B, T, di, n, W,
+                                                           torch.bfloat16, seed=1)
+    x = xz[..., :di]
+    conv = cc_mod.causal_conv_silu_cuda
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv(x.half(), w.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv(x, w.float())
+    with pytest.raises(ValueError, match="width is 4"):
+        conv(x, torch.cat([w, w[:1]]))
+    with pytest.raises(ValueError, match="width is 4"):
+        conv(x, w[:3])
+    with pytest.raises(ValueError, match="not read in place"):
+        conv(x[..., ::2], w[:, ::2])
+    with pytest.raises(ValueError, match="not read in place"):
+        conv(torch.cat([x, x], dim=1)[:, :T], w)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv(x, w, tail.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv(x, w.cpu())
+    xs = xz[..., :di].contiguous()
+    z = xz[..., di:]
+    scan = ms_mod.mamba_scan_gated_cuda
+    good = (xs, dt_raw, bc[..., :n], bc[..., n:], A, dt_bias, D, z)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        scan(*(t.half() if t.dtype == torch.bfloat16 else t for t in good))
+    with pytest.raises(ValueError, match="dt_bias"):
+        scan(*good[:5], dt_bias.bfloat16(), *good[6:])
+    with pytest.raises(ValueError, match="state size"):
+        scan(xs, dt_raw, bc[..., :12], bc[..., 12:24], A[:, :12].contiguous(), dt_bias, D, z)
+    with pytest.raises(ValueError, match="not read in place"):
+        scan(xs.transpose(0, 1).contiguous().transpose(0, 1), *good[1:])
+    with pytest.raises(ValueError, match="not read in place"):
+        scan(xs, dt_raw, bc[..., :2 * n:2], *good[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        scan(*good[:6], torch.stack([D, D], 1)[:, 0], z)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan(*good[:7], z.cpu())
+    assert ops.launch_counts()["causal_conv"] == 0 and ops.launch_counts()["mamba_scan"] == 0
+
+
 # --------------------------------------------------------------------- wkv6
 def _wkv6_inputs(card, B, T, H, N, seed):
     """Drawn as tests/test_kernels.py::test_wkv6_shapes draws them."""
@@ -427,7 +542,8 @@ def test_reduced_prefill_through_the_kernels(card, arch):
     tol = dict(rtol=1e-2, atol=5e-2) if arch == "hymba-1.5b" else dict(rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(got, want, **tol)
     assert counts["flash_attention"] == model.cfg.n_layers
-    assert counts["mamba_scan"] == (model.cfg.n_layers if arch == "hymba-1.5b" else 0)
+    for name in ("causal_conv", "mamba_scan"):
+        assert counts[name] == (model.cfg.n_layers if arch == "hymba-1.5b" else 0)
 
 
 @pytest.mark.parametrize("d_model", [64, 128])
@@ -452,6 +568,7 @@ def test_reduced_rwkv6_prefill_through_the_kernel(card, d_model):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
     assert counts["wkv6"] == model.cfg.n_layers
     assert counts["flash_attention"] == 0 and counts["mamba_scan"] == 0
+    assert counts["causal_conv"] == 0
 
 
 # ----------------------------------------------------------------- dry run
@@ -465,7 +582,8 @@ ROOFLINE_FIELDS = ("compute_s", "memory_s", "collective_s", "bottleneck", "model
 
 
 @pytest.mark.parametrize("arch,kernels,tol", [
-    ("hymba-1.5b", ("flash_attention", "mamba_scan"), dict(rtol=1e-2, atol=5e-2)),
+    ("hymba-1.5b", ("flash_attention", "causal_conv", "mamba_scan"),
+     dict(rtol=1e-2, atol=5e-2)),
     ("rwkv6-3b", ("wkv6",), dict(rtol=2e-3, atol=2e-3)),
 ])
 def test_dryrun_prefill_32k_cell_on_the_card(card, arch, kernels, tol):

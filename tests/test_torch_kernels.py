@@ -17,6 +17,7 @@ from repro.kernels.matmul import matmul_pallas
 from repro.kernels.segment_reduce import segment_rowmax_pallas
 from repro.kernels.stencil import stencil_pallas
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import causal_conv as cc_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import matmul as mm_mod
@@ -31,7 +32,7 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NO_LAUNCHES = {"matmul": 0, "stencil": 0, "segment_rowmax": 0,
-               "flash_attention": 0, "mamba_scan": 0, "wkv6": 0}
+               "flash_attention": 0, "mamba_scan": 0, "wkv6": 0, "causal_conv": 0}
 
 
 def _normal(seed, shape):
@@ -317,6 +318,177 @@ def test_ops_mamba_scan_matches_jax_ops():
     y, s = ops.mamba_scan(*map(torch.from_numpy, args))
     _close(y, y_j, "float32")
     _close(s, s_j, "float32")
+
+
+# ------------------------------------------------------ Hymba's mixer kernels
+def _conv_chain(x, w, tail):
+    """The mixer's conv before the conv kernel: ``_causal_conv`` then SiLU,
+    each operator rounded to x's dtype."""
+    from repro_torch.models.hymba import _causal_conv
+
+    y, new_tail = _causal_conv(x, w, tail)
+    return torch.nn.functional.silu(y), new_tail
+
+
+def _gated_chain(xs, dt_raw, Bs, Cs, A, dt_bias, D, z):
+    """The mixer's zero-state kernel path before the gated scan: dt's cast,
+    bias and softplus, fp32 copies for the plain scan, then the D skip and
+    the gate, each operator rounded to xs's dtype."""
+    f = torch.nn.functional
+    dt = f.softplus(dt_raw.to(torch.float32) + dt_bias)
+    y32, state = ops.mamba_scan(xs.to(torch.float32), dt, Bs.to(torch.float32),
+                                Cs.to(torch.float32), A)
+    return (y32.to(xs.dtype) + xs * D) * f.silu(z), state
+
+
+def _mixer_tensors(B, T, di, n, W, dtype, seed):
+    """xz (B,T,2di) and bc (B,T,2n) as the mixer has them, their halves read
+    as strided views; the rest as ``tests/test_torch_cuda.py`` draws them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    xz, bc = randn(B, T, 2 * di).to(dtype), (0.5 * randn(B, T, 2 * n)).to(dtype)
+    w, tail = (0.5 * randn(W, di)).to(dtype), randn(B, W - 1, di).to(dtype)
+    dt_raw = randn(B, T, di)
+    dt_raw[..., ::7] += 25.0                       # past softplus's threshold of 20
+    A, dt_bias = -torch.exp(0.3 * randn(di, n)), -1.5 + 0.1 * randn(di)
+    return xz, bc, w, tail, dt_raw.to(dtype), A, dt_bias, randn(di).to(dtype)
+
+
+def _fp32(*ts):
+    return [t.to(torch.float32) if t.is_floating_point() else t for t in ts]
+
+
+# T = 1, T < W-1, T off the 32-step chunk (and the 8-step conv chunk);
+# d_inner off a multiple of 4 and of 8; each of STATE_SIZES; W 2 to 4.
+MIXER_CASES = [(1, 1, 16, 4, 4), (2, 2, 12, 8, 4), (2, 37, 10, 16, 3), (3, 45, 24, 32, 4),
+               (1, 70, 9, 4, 2), (2, 33, 20, 8, 4)]
+
+
+@pytest.mark.parametrize("B,T,di,n,W", MIXER_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_tail", [False, True])
+def test_causal_conv_plain_equals_the_operator_chain(B, T, di, n, W, dtype, with_tail):
+    """The conv kernel's plain twin against the chain it replaces, on xz's
+    first half as a strided view: bit for bit in fp32; in bf16 within bf16
+    rounding, and at least as near the chain in fp32 (one rounding, not
+    one an operator); the new tail exact."""
+    xz, _, w, tail, *_ = _mixer_tensors(B, T, di, n, W, TORCH[dtype], seed=T + di)
+    tail = tail if with_tail else None
+    x = xz[..., :di]
+    assert x.stride() == (T * 2 * di, 2 * di, 1)
+    y, new_tail = ops.causal_conv_silu(x, w, tail)
+    want, want_tail = _conv_chain(x, w, tail)
+    assert y.dtype == x.dtype and new_tail.shape == (B, W - 1, di)
+    assert torch.equal(new_tail, want_tail)
+    if dtype == "float32":
+        assert torch.equal(y, want)
+        return
+    torch.testing.assert_close(y, want, **TOL[dtype])
+    exact, _ = _conv_chain(*_fp32(x, w), None if tail is None else tail.float())
+    assert (y.float() - exact).abs().max() <= (want.float() - exact).abs().max()
+
+
+@pytest.mark.parametrize("B,T,di,n,W", MIXER_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_gated_plain_equals_the_operator_chain(B, T, di, n, W, dtype):
+    """The gated scan's plain twin against the chain it replaces, on bc's
+    halves and xz's second half as strided views: bit for bit in fp32; in
+    bf16 within bf16 rounding and at least as near the chain in fp32; the
+    final state bit for bit (the same fp32 scan)."""
+    xz, bc, _, _, dt_raw, A, dt_bias, D = _mixer_tensors(B, T, di, n, W, TORCH[dtype], seed=T)
+    xs = torch.nn.functional.silu(xz[..., :di].float()).to(TORCH[dtype])
+    args = (xs, dt_raw, bc[..., :n], bc[..., n:], A, dt_bias, D, xz[..., di:])
+    assert [t.stride(1) for t in (args[2], args[3], args[7])] == [2 * n, 2 * n, 2 * di]
+    y, state = ops.mamba_scan_gated(*args)
+    want, want_state = _gated_chain(*args)
+    assert y.dtype == xs.dtype and y.shape == (B, T, di)
+    assert torch.equal(state, want_state)
+    if dtype == "float32":
+        assert torch.equal(y, want)
+        return
+    torch.testing.assert_close(y, want, **TOL[dtype])
+    exact, _ = _gated_chain(*_fp32(*args))
+    assert (y.float() - exact).abs().max() <= (want.float() - exact).abs().max()
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hymba_mixer_kernel_route_equals_the_plain_route(dtype):
+    """``mamba_mixer(use_kernel=True)`` (the conv and gated scan's plain
+    twins here) against ``use_kernel=False`` on hymba's tiny config: the
+    output and final state within 1e-4 of their largest |entry| in fp32
+    (the two scans sum in other orders), the conv tail exact. In bf16 each
+    route is held to the fp32 mixer on the same input: the kernel route,
+    rounded once, no farther from it than the plain route, which rounds
+    every operator (on these random weights the output reaches 3e5)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build as build_model
+    from repro_torch.models.hymba import mamba_mixer
+
+    def mixer(dt, **kw):
+        cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), dtype=dt)
+        params = build_model(cfg).init(torch.Generator().manual_seed(11), device="cpu")
+        p = {k: v[0] for k, v in params["layers"]["mamba"].items()}
+        x = torch.randn((2, 45, cfg.d_model), generator=torch.Generator().manual_seed(12))
+        return mamba_mixer(p, x.to(TORCH[dtype]).to(TORCH[dt]), cfg, **kw)
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    out_k, state_k, conv_k = mixer(dtype, use_kernel=True)
+    out_p, state_p, conv_p = mixer(dtype)
+    assert out_k.dtype == out_p.dtype == TORCH[dtype]
+    assert torch.equal(conv_k, conv_p)
+    if dtype == "float32":
+        assert gap(out_k, out_p) <= 1e-4 * float(out_p.abs().max())
+        assert gap(state_k, state_p) <= 1e-4 * float(state_p.abs().max())
+    else:
+        out_32, state_32, _ = mixer("float32")
+        assert gap(out_k, out_32) <= gap(out_p, out_32) <= 2e-2 * float(out_32.abs().max())
+        assert gap(state_k, state_32) <= 2e-2 * float(state_32.abs().max())
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_mixer_kernel_entries_refuse_autograd_and_other_devices():
+    """Off the CPU, the conv and gated scan entries raise before their
+    wrappers when an input requires grad, and their wrappers raise on a
+    tensor not on CUDA; nothing launches."""
+    def meta(*shape, grad=True):
+        return torch.empty(shape, device="meta", requires_grad=grad)
+
+    x, w = meta(1, 8, 4), meta(4, 4)
+    gated = (x, x, meta(1, 8, 4), meta(1, 8, 4), meta(4, 4), meta(4), meta(4), x)
+    with pytest.raises(RuntimeError, match="causal_conv: the CUDA kernel has no backward"):
+        ops.causal_conv_silu(x, w)
+    with pytest.raises(RuntimeError, match="mamba_scan: the CUDA kernel has no backward"):
+        ops.mamba_scan_gated(*gated)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ops.causal_conv_silu(x, w)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ops.mamba_scan_gated(*gated)
+    cpu = torch.ones(1, 8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cc_mod.causal_conv_silu_cuda(cpu, torch.ones(4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ms_mod.mamba_scan_gated_cuda(cpu, cpu, cpu, cpu, torch.ones(4, 4), torch.ones(4),
+                                     torch.ones(4), cpu)
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_launch_counts_name_the_conv_kernel():
+    """The conv kernel keeps its own counter beside the scan's."""
+    assert "causal_conv" in ops.KERNELS and set(ops.launch_counts()) == set(NO_LAUNCHES)
+    from repro_torch import tracing
+
+    tracing.count("kernel.causal_conv.launches", 3)
+    assert ops.launch_counts()["causal_conv"] == 3
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_flash_bf16_wrapper_copies_only_what_the_kernel_cannot_read():

@@ -20,6 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import registry
+from repro_torch.models.params import tree_map
 from repro_torch import tracing
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,7 +44,8 @@ KEPT = {
 SPANS = {
     ("hymba-1.5b", "prefill"): {"step.prefill", "embed", "layer", "attn", "attn.core", "ssm",
                                 "mlp", "head", "gemm", "cast.weight",
-                                "kernel.flash_attention", "kernel.mamba_scan"},
+                                "kernel.flash_attention", "kernel.causal_conv",
+                                "kernel.mamba_scan"},
     ("hymba-1.5b", "decode"): {"step.decode", "embed", "layer", "attn", "attn.core", "ssm",
                                "mlp", "head", "gemm", "cast.weight"},
     ("rwkv6-3b", "prefill"): {"step.prefill", "embed", "layer", "ssm", "mlp", "head", "gemm",
@@ -141,7 +143,7 @@ def test_a_step_emits_the_documented_spans_nested(models, tmp_path, arch, kind):
             assert up[0] == "attn"
         elif name == "kernel.flash_attention":
             assert up[:2] == ["attn.core", "attn"]
-        elif name in ("kernel.mamba_scan", "kernel.wkv6"):
+        elif name in ("kernel.causal_conv", "kernel.mamba_scan", "kernel.wkv6"):
             assert up[0] == "ssm"
         else:
             assert name in ("gemm", "cast.weight")
@@ -155,6 +157,46 @@ def test_outputs_are_bit_identical_under_a_profiler(models, arch, kind):
     with profile(activities=[ProfilerActivity.CPU]):
         traced = _run(model, params, kind)
     assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+
+
+@pytest.mark.cuda
+def test_each_mixer_kernel_span_launches_its_kernel_alone_on_the_card(models, tmp_path):
+    """On the card, a traced bf16 prefill of the tiny hymba puts exactly one
+    device kernel under each ``kernel.causal_conv`` and ``kernel.mamba_scan``
+    span, named as the roofline readers look for it: the scan's
+    ``mamba_scan_kernel``, the conv's ``causal_conv_silu_kernel``, which is
+    never taken for the scan's. Skipped without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch finds no CUDA card)")
+    from bench.spans import HOST_CATS
+    from bench.trace import DEVICE_CATS
+
+    model, params = models["hymba-1.5b"]
+    params = tree_map(lambda t: t.to("cuda"), params)
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, S), device="cuda")
+    step = make_prefill_step(model, use_kernel=True)
+    step(params, tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, tokens)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    launched = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
+                if e.get("cat") in HOST_CATS and "correlation" in e.get("args", {})}
+    device = [(launched[e["args"]["correlation"]], e["name"]) for e in events
+              if e.get("cat") in DEVICE_CATS and e.get("args", {}).get("correlation") in launched]
+    want = {"kernel.causal_conv": "causal_conv_silu_kernel",
+            "kernel.mamba_scan": "mamba_scan_kernel"}
+    for span, kernel in want.items():
+        spans = [e for e in events if e.get("cat") == "cpu_op" and e["name"] == span]
+        assert len(spans) == model.cfg.n_layers
+        for sp in spans:
+            inside = [name for (tid, ts), name in device
+                      if tid == sp["tid"] and sp["ts"] <= ts <= sp["ts"] + sp["dur"]]
+            assert len(inside) == 1 and kernel in inside[0], (span, inside)
+    assert not any("mamba_scan_kernel" in name and "causal_conv" in name for _, name in device)
 
 
 # --------------------------------------------------------------- counters
@@ -235,9 +277,10 @@ def test_a_cast_to_the_same_dtype_counts_nothing_and_opens_no_span(tmp_path):
 
 def test_launch_counts_keep_their_keys_and_count_under_threads():
     """``ops.launch_counts()`` reads the ``kernel.<name>.launches`` counters:
-    the same six keys, counts kept by many threads at a short switch
+    the same seven keys, counts kept by many threads at a short switch
     interval, and a reset that zeroes them."""
-    keys = {"matmul", "stencil", "segment_rowmax", "flash_attention", "mamba_scan", "wkv6"}
+    keys = {"matmul", "stencil", "segment_rowmax", "flash_attention", "mamba_scan", "wkv6",
+            "causal_conv"}
     before = ops.launch_counts()
     assert set(before) == keys
     n_threads, per_thread = 16, 500
