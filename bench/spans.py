@@ -1,10 +1,14 @@
 """Device time by program span, read from a traced run's Chrome trace.
 
 The program opens profiler spans at its layer boundaries
-(``repro_torch/tracing.py``): each is a ``cpu_op`` event named from
-``PROGRAM_SPANS`` on the host thread that opened it, among the operators
-(torch's light range); a ``user_annotation`` range, such as the harness's
-step, is a span too. Each device event (a kernel, copy or
+(``repro_torch/tracing.py``): each is a ``cpu_op`` event on the host
+thread that opened it, among the operators (torch's light range), and is
+told from them by its form: torch names its operators ``ns::op`` and the
+ranges of its process groups ``backend:op``, and gives its autograd ranges
+(a ``Function``'s apply, a backward node) a ``Sequence number``, so any
+``cpu_op`` whose name holds no ``:`` and that carries no sequence number is
+a span, whatever the name, but for torch's own ``TORCH_RANGES``. A
+``user_annotation`` range, such as the harness's step, is a span too. Each device event (a kernel, copy or
 fill) is put down to the spans open on its host thread when its runtime
 launch call ran: the launch and the device event share ``args.correlation``.
 A span's inclusive time is the device time of everything launched anywhere
@@ -33,18 +37,19 @@ from bench.peaks import bound_s  # noqa: E402
 from bench.trace import DEVICE_CATS, STEP, Trace  # noqa: E402
 
 PROGRAM_STEPS = ("step.prefill", "step.decode")
-PROGRAM_SPANS = frozenset({*PROGRAM_STEPS, "embed", "layer", "attn", "attn.core", "ssm", "mlp",
-                           "head", "gemm", "cast.weight"})      # and every kernel.<name>
+TORCH_RANGES = frozenset({"record_param_comms", "detach", "detach_"})   # torch's, with no ``:``
 NO_SPAN = "(no span)"
 HOST_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def is_span(e: dict) -> bool:
-    """Whether a trace event is a span: a ``user_annotation`` range, or one
-    of the program's light ranges."""
+    """Whether a trace event is a span: a ``user_annotation`` range, or a
+    ``cpu_op`` range that is neither an operator, an autograd range nor one
+    of torch's own."""
     cat, name = e.get("cat"), e.get("name", "")
     return cat == "user_annotation" or (
-        cat == "cpu_op" and (name in PROGRAM_SPANS or name.startswith("kernel.")))
+        cat == "cpu_op" and ":" not in name and name not in TORCH_RANGES
+        and "Sequence number" not in e.get("args", {}))
 
 
 class Spans:

@@ -2,7 +2,13 @@
 of the benchmark whose configurations and mixes are cut to a size the CPU
 runs in seconds (the cells' limits as they are).
 
-    PYTHONPATH=src python -m pytest -q bench/tests          # CPU, ~2 min
+The sizes are data: ``bench/tests/tiny/configs/<config>.json`` holds a
+configuration's ``port`` at CPU size and the init rules it replaces
+(``init_rules``, by pattern), ``bench/tests/tiny/traffic/<traffic>.json``
+the keys of a mix it changes (``mix``). Every configuration and mix of a
+cell has one; a cell without is named, and nothing is built at full width.
+
+    PYTHONPATH=src python -m pytest -q bench/tests          # CPU, ~1 min
     PYTHONPATH=src python -m pytest -q -m cuda bench/tests  # on the card
 """
 from __future__ import annotations
@@ -20,60 +26,80 @@ for p in (ROOT / "src", ROOT):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-TINY_PORT = {
-    "hymba-1.5b": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
-                       vocab_size=500, d_inner=128, ssm_state=8, conv_width=4,
-                       sliding_window=16, rope_theta=10000.0, norm_eps=1e-5),
-    "rwkv6-3b": dict(n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64, d_ff=256,
-                     vocab_size=500, norm_eps=1e-5),
-}
-TINY_MIX = {"prefill_32k": dict(prompt=64),
-            "decode_32k": dict(start=40, context=64),
-            "decode_32k_b128": dict(batch=16, start=40, context=64)}
+TINY = Path("bench") / "tests" / "tiny"
 
 # The decode cells at B=8, which BENCHMARK.json leaves out (their host-bound
 # steps spread too widely between runs for a bound), as a later change would
-# add them: the tiny copy carries them, reporting what the B=128 cell reports.
+# add them: the tiny copy carries them, each reporting the metrics of the
+# cell named by its ``like``.
 HELD = [
     {"name": "hymba-decode-32k", "config": "hymba-1.5b", "traffic": "decode_32k", "chips": 1,
-     "why": "B=8 rows from position 30720 on a seeded window ring and Mamba state, closed loop"},
+     "why": "B=8 rows from position 30720 on a seeded window ring and Mamba state, closed loop",
+     "like": "hymba-decode-32k-b128"},
     {"name": "rwkv6-decode-32k", "config": "rwkv6-3b", "traffic": "decode_32k", "chips": 1,
-     "why": "B=8 rows from position 30720 on a seeded WKV state, closed loop"},
+     "why": "B=8 rows from position 30720 on a seeded WKV state, closed loop",
+     "like": "hymba-decode-32k-b128"},
 ]
 
 
-def port_params(name: str, port: dict) -> int:
+def cells(src: Path = ROOT) -> list[dict]:
+    """The workloads of ``src``'s BENCHMARK.json and the held cells."""
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    return bench["workloads"] + [{k: v for k, v in w.items() if k != "like"} for w in HELD]
+
+
+def missing_tiny(src: Path = ROOT) -> list[str]:
+    """The tiny files that the cells of ``src`` need and that are not there."""
+    want = {f"configs/{w['config']}.json" for w in cells(src)}
+    want |= {f"traffic/{w['traffic']}.json" for w in cells(src)}
+    return sorted(f"{TINY / f}" for f in want if not (src / TINY / f).is_file())
+
+
+def tiny(kind: str, name: str, src: Path = ROOT) -> dict:
+    """``bench/tests/tiny/<kind>/<name>.json`` of ``src``."""
+    return json.loads((src / TINY / kind / f"{name}.json").read_text())
+
+
+def port_params(arch: str, port: dict) -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import registry
 
-    return registry.build(dataclasses.replace(get_config(name), **port)).n_params
+    return registry.build(dataclasses.replace(get_config(arch), **port)).n_params
 
 
-def make_tiny_root(path: Path, dtype: str = "bfloat16") -> Path:
-    """A copy of BENCHMARK.json, with the held decode cells, and of bench/
-    at ``path``, with the tiny sizes."""
-    shutil.copytree(ROOT / "bench", path / "bench",
+def make_tiny_root(path: Path, src: Path = ROOT, dtype: str = "bfloat16",
+                   full_depth: bool = False) -> Path:
+    """A copy of ``src``'s BENCHMARK.json, with the held cells, and of its
+    bench/ at ``path``, every configuration and mix at its tiny size; with
+    ``full_depth``, each configuration keeps the depth it is run at."""
+    missing = missing_tiny(src)
+    if missing:
+        raise FileNotFoundError(f"no tiny sizes for a cell of {src}: {missing}")
+    shutil.copytree(src / "bench", path / "bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench["workloads"] += HELD
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    bench["workloads"] = cells(src)
     for m in bench["end_to_end"] + bench["per_layer"]:
-        if "hymba-decode-32k-b128" in m.get("workloads", []):
-            m["workloads"] += [w["name"] for w in HELD]
+        for w in HELD:
+            if w["like"] in m.get("workloads", []):
+                m["workloads"].append(w["name"])
     (path / "BENCHMARK.json").write_text(json.dumps(bench))
-    for name, port in TINY_PORT.items():
-        f = path / "bench" / "configs" / f"{name}.json"
-        conf = json.loads(f.read_text())
-        # logits at the published width's scale: the limits on token gaps
-        # are in logits
-        for rule in conf["init"]["rules"]:
-            if rule[0] == "lm_head":
-                rule[2] *= (conf["port"]["d_model"] / port["d_model"]) ** 0.5
-        conf["port"] = {**port, "dtype": dtype}
-        conf["n_params"] = port_params(name, conf["port"])
+    for c in bench["configs"]:
+        f = path / c["file"]
+        conf, small = json.loads(f.read_text()), tiny("configs", c["name"], src)
+        rules = {r[0]: r for r in small.get("init_rules", [])}
+        unknown = set(rules) - {r[0] for r in conf["init"]["rules"]}
+        if unknown:
+            raise ValueError(f"{c['name']}: tiny init rules for no rule of the configuration: "
+                             f"{sorted(unknown)}")
+        conf["init"]["rules"] = [rules.get(r[0], r) for r in conf["init"]["rules"]]
+        depth = {"n_layers": conf["port"]["n_layers"]} if full_depth else {}
+        conf["port"] = {**small["port"], **depth, "dtype": dtype}
+        conf["n_params"] = port_params(conf["arch"], conf["port"])
         f.write_text(json.dumps(conf))
-    for mix, upd in TINY_MIX.items():
+    for mix in {w["traffic"] for w in bench["workloads"]}:
         f = path / "bench" / "traffic" / f"{mix}.json"
-        f.write_text(json.dumps({**json.loads(f.read_text()), **upd}))
+        f.write_text(json.dumps({**json.loads(f.read_text()), **tiny("traffic", mix, src)["mix"]}))
     return path
 
 

@@ -6,6 +6,7 @@ control in the program's place."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -20,13 +21,22 @@ import torch
 
 from bench import harness, kernels, peaks, stats, weights
 from bench.trace import Trace
-from bench.tests.conftest import HELD, ROOT, make_tiny_root
+from bench.tests.conftest import ROOT, cells, make_tiny_root, missing_tiny, tiny
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCH["workloads"] + HELD]
+CELLS = [w["name"] for w in cells()]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CPU = torch.device("cpu")
+# The program's settings that have a key of the published config beside them;
+# a file maps more under ``published_as``.
+COUNTERPARTS = {"n_layers": "num_hidden_layers", "d_model": "hidden_size", "dtype": "torch_dtype",
+                "vocab_size": "vocab_size", "d_ff": "intermediate_size"}
+EXPERTS = ("n_routed_experts", "num_experts", "num_local_experts")
+# A width, which no cut may change: hidden, intermediate, latent, state and
+# projection sizes, head sizes, expansion factors, windows, experts a token.
+WIDTH = re.compile(r".*(_dim|_rank)$|.*(hidden_size|intermediate|inner|latent|state|proj"
+                   r"|head_size|expan|window|conv|per_tok)")
 
 
 def _line(s: str) -> bool:
@@ -34,8 +44,7 @@ def _line(s: str) -> bool:
 
 
 # ------------------------------------------------------------ the contract
-def test_benchmark_json_keeps_to_the_contract():
-    b = BENCH
+def _keeps_to_the_contract(b: dict, root) -> None:
     assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads",
                       "end_to_end", "per_layer"}
     assert b["paths"] == ["bench"] and len(b["command"]) <= 32
@@ -48,7 +57,7 @@ def test_benchmark_json_keeps_to_the_contract():
     assert len(names) == len(set(names)) and all(NAME.match(n) for n in names)
     for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert c["file"].startswith("bench/") and (ROOT / c["file"]).is_file()
+        assert c["file"].startswith("bench/") and (root / c["file"]).is_file()
         assert _line(c["source"]) and _line(c["why"]) and len(c["reduced"]) <= 16
         assert any(w["config"] == c["name"] for w in b["workloads"])
     for w in b["workloads"]:
@@ -69,15 +78,15 @@ def test_benchmark_json_keeps_to_the_contract():
         for cell in m["workloads"]:          # each cell listed reports what it moves
             assert cell in e2e[m["moves"]].get("workloads", [cell])
     for w in b["workloads"]:
-        cell = harness.load_cell(w["name"])
+        cell = harness.load_cell(w["name"], root)
         reported = {m["name"] for m in cell.end_to_end}
         assert "setup_s" in reported and len(reported) >= 2 and cell.per_layer
 
 
-def test_every_file_a_cell_is_made_of_is_there():
-    for w in BENCH["workloads"]:
-        cell = harness.load_cell(w["name"])
-        bench = ROOT / "bench"
+def _files_are_there(b: dict, root) -> None:
+    for w in b["workloads"]:
+        cell = harness.load_cell(w["name"], root)
+        bench = root / "bench"
         for f in (f"traffic/{cell.mix['kind']}.py", f"reference/{cell.config['reference']}.py",
                   f"work/{cell.config['family']}.py",
                   *(f"metrics/{m['name']}.py" for m in cell.per_layer)):
@@ -85,15 +94,86 @@ def test_every_file_a_cell_is_made_of_is_there():
         assert set(cell.spec["limits"]) and all(v > 0 for v in cell.spec["limits"].values())
 
 
-def test_configuration_files_hold_the_published_widths():
-    for c in BENCH["configs"]:
-        conf = json.loads((ROOT / c["file"]).read_text())
-        assert conf["reduced"] == c["reduced"] == []
+def _hold_the_published_widths(b: dict, root) -> None:
+    """Each configuration's file holds it as run: its ``port`` equals each
+    published key it has a counterpart for. The keys it cuts are listed in
+    ``reduced``, as in BENCHMARK.json, with their published values under
+    ``published``; each differs from it, none is a width, the floors of a
+    cut hold (8 routed experts, an eighth of the vocabulary), and the file
+    says under ``deployment`` how many chips share a layer."""
+    for c in b["configs"]:
+        conf = json.loads((root / c["file"]).read_text())
+        name, reduced, published = c["name"], conf["reduced"], conf.get("published", {})
+        assert reduced == c["reduced"], name
+        assert set(published) == set(reduced) and set(reduced) <= set(conf), name
+        assert [k for k in reduced if conf[k] == published[k] or WIDTH.match(k)] == [], name
+        pairs = {**COUNTERPARTS, **conf.get("published_as", {})}
         port = conf["port"]
-        assert port["n_layers"] == conf["num_hidden_layers"]
-        assert port["d_model"] == conf["hidden_size"] and port["dtype"] == conf["torch_dtype"]
-        assert port["vocab_size"] == conf["vocab_size"]
-        assert port["d_ff"] == conf["intermediate_size"]
+        assert all(pairs[k] in conf for k in ("n_layers", "d_model", "dtype", "vocab_size")), name
+        assert all(k in port and v in conf for k, v in conf.get("published_as", {}).items()), name
+        differ = {k for k, v in pairs.items() if k in port and v in conf and port[k] != conf[v]}
+        assert differ == set(), (name, differ)
+        if reduced:
+            chips = conf.get("deployment", {}).get("chips_per_layer")
+            assert isinstance(chips, int) and chips >= 1, name
+        for k in EXPERTS:
+            if k in conf:
+                assert conf[k] >= min(8, published.get(k, conf[k])), (name, k)
+        assert 8 * conf["vocab_size"] >= published.get("vocab_size", conf["vocab_size"]), name
+
+
+def test_benchmark_json_keeps_to_the_contract():
+    _keeps_to_the_contract(BENCH, ROOT)
+
+
+def test_every_file_a_cell_is_made_of_is_there():
+    _files_are_there(BENCH, ROOT)
+
+
+def test_configuration_files_hold_the_published_widths():
+    _hold_the_published_widths(BENCH, ROOT)
+
+
+def test_every_cell_has_its_tiny_sizes():
+    assert missing_tiny() == []
+
+
+def _cut(entry, conf, **keys):
+    """Cut ``keys`` (published name -> value as run), declared in full."""
+    entry["reduced"] = conf["reduced"] = sorted(keys)
+    conf["published"] = {k: conf.get(k, 64) for k in keys}
+    conf.update(keys)
+    conf["deployment"] = {"chips_per_layer": 2}
+
+
+CUTS = {
+    "port_undeclared": lambda e, c: c["port"].update(n_layers=16),
+    "no_published_value": lambda e, c: (_cut(e, c, num_hidden_layers=16), c.pop("published")),
+    "same_as_published": lambda e, c: (_cut(e, c, num_hidden_layers=16),
+                                       c["published"].update(num_hidden_layers=16)),
+    "not_in_benchmark_json": lambda e, c: (_cut(e, c, num_hidden_layers=16),
+                                           e.update(reduced=[])),
+    "no_deployment": lambda e, c: (_cut(e, c, num_hidden_layers=16), c.pop("deployment")),
+    "a_width": lambda e, c: _cut(e, c, mamba_d_state=8),
+    "vocabulary_under_an_eighth": lambda e, c: _cut(e, c, vocab_size=3000),
+    "experts_under_8": lambda e, c: _cut(e, c, n_routed_experts=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CUTS))
+def test_an_undeclared_or_wide_cut_is_refused(tmp_path, case):
+    b = json.loads(json.dumps(BENCH))
+    entry = next(c for c in b["configs"] if c["name"] == "hymba-1.5b")
+    conf = json.loads((ROOT / entry["file"]).read_text())
+    CUTS[case](entry, conf)
+    if "n_layers" in conf["port"] and case != "port_undeclared":
+        conf["port"]["n_layers"] = conf["num_hidden_layers"]
+    conf["port"]["vocab_size"] = conf["vocab_size"]
+    (tmp_path / "bench/configs").mkdir(parents=True)
+    (tmp_path / entry["file"]).write_text(json.dumps(conf))
+    b["configs"] = [entry]
+    with pytest.raises(AssertionError):
+        _hold_the_published_widths(b, tmp_path)
 
 
 # --------------------------------------------------------------- counting
@@ -154,11 +234,10 @@ def test_weights_follow_the_seed_and_the_rules():
     from repro_torch.models import registry
     from repro_torch.models.params import abstract_params
 
-    from bench.tests.conftest import TINY_PORT
-
     conf = json.loads((ROOT / "bench/configs/hymba-1.5b.json").read_text())
     model = registry.build(dataclasses.replace(get_config("hymba-1.5b"),
-                                               **{**TINY_PORT["hymba-1.5b"], "d_ff": 4096}))
+                                               **{**tiny("configs", "hymba-1.5b")["port"],
+                                                  "d_ff": 4096}))
     meta = abstract_params(model.schema)
     a = weights.make_params(meta, conf["init"], 2 ** 40 + 3, CPU)
     b = weights.make_params(meta, conf["init"], 2 ** 40 + 3, CPU)
@@ -186,8 +265,7 @@ def test_trace_reader_unions_device_time_and_names_the_gaps():
               ev("cpu_op", "aten::mm", 0.6, 0.8), ev("cpu_op", "aten::other", 0.6, 0.8, tid=2)]
     t = Trace(events, 2)
     assert t.window_s == 2.0 and t.launches == 2
-    assert math.isclose(t.busy_s, 0.5) and math.isclose(t.kernel_time(("k",))[0], 0.6)
-    assert t.kernel_time(("k2",))[1] == 1
+    assert math.isclose(t.busy_s, 0.5)
     bd = t.breakdown()
     assert bd["device_ops"][0][0] in ("k1", "k2")
     gaps = dict(bd["idle_gaps"])
@@ -235,53 +313,124 @@ def test_a_sound_run_is_correct_and_reports_the_cells_metrics(tiny_root, cell):
     assert traced["device"]["window_s"] > 0 and "breakdown" in traced
 
 
-def test_a_cell_mix_kind_config_and_metric_added_as_files_are_found(tmp_path):
-    root = make_tiny_root(tmp_path)
-    bench = root / "bench"
+def _hashes(root) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((root / "bench").rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _only_appended(old, new) -> bool:
+    """Whether ``new`` is ``old`` with entries appended to its lists."""
+    if isinstance(old, dict):
+        return isinstance(new, dict) and set(old) == set(new) and all(
+            _only_appended(old[k], new[k]) for k in old)
+    if isinstance(old, list):
+        return isinstance(new, list) and len(new) >= len(old) and all(
+            _only_appended(a, b) for a, b in zip(old, new))
+    return old == new
+
+
+def test_a_cell_mix_kind_config_and_metric_added_as_files_are_found(tmp_path, monkeypatch):
+    """A configuration of a new family, cut in depth, with its tiny sizes,
+    reference and work count; a mix and a kind; a metric that reads a span
+    under a name the program has never opened: each added to a copy of the
+    benchmark as new files and appended entries, with no file there
+    changed, and found by the checks and by a whole run, untraced and
+    traced."""
+    src = tmp_path / "src"
+    shutil.copytree(ROOT / "bench", src / "bench", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", src)
+    hashes, old = _hashes(src), json.loads((src / "BENCHMARK.json").read_text())
+    bench = src / "bench"
+
+    def add(name, text):
+        assert not (bench / name).exists(), name
+        (bench / name).write_text(text if isinstance(text, str) else json.dumps(text))
+
     conf = json.loads((bench / "configs/hymba-1.5b.json").read_text())
-    conf["name"] = "hymba-1.5b-narrow"
-    conf["port"]["sliding_window"] = 8
-    (bench / "configs/hymba-1.5b-narrow.json").write_text(json.dumps(conf))
-    (bench / "traffic/prefill_48.json").write_text(json.dumps(
-        {"kind": "prefill_again", "batch": 3, "prompt": 48, "warmup_steps": 1}))
-    (bench / "traffic/prefill_again.py").write_text(
-        "from bench.traffic.prefill import Kind as _Prefill\n\n\nclass Kind(_Prefill):\n    pass\n")
-    (bench / "metrics/steps_traced.py").write_text("def read(r):\n    return r.trace.steps\n")
-    (bench / "workloads/hymba-narrow-48.json").write_text(json.dumps(
-        {"name": "hymba-narrow-48", "config": "hymba-1.5b-narrow", "traffic": "prefill_48",
-         "check_steps": 1, "trace_steps": 2, "limits": {"logit_err": 0.12}}))
-    b = json.loads((root / "BENCHMARK.json").read_text())
-    b["configs"].append({"name": "hymba-1.5b-narrow", "source": "test",
-                         "file": "bench/configs/hymba-1.5b-narrow.json", "reduced": [],
-                         "why": "test"})
-    b["workloads"].append({"name": "hymba-narrow-48", "config": "hymba-1.5b-narrow",
+    layer = harness.load_file(bench / "work/hymba.py", "test_work_hymba")
+    cfg = {**conf["port"], **conf["fixed"]}
+    per_layer = layer.matrix_params(cfg) + layer.vector_params(cfg)
+    conf.update(name="hymba-1.5b-half", family="hymba_twin", reference="hymba_twin",
+                num_hidden_layers=16, reduced=["num_hidden_layers"],
+                published={"num_hidden_layers": 32},
+                published_as={"d_inner": "mamba_d_inner", "ssm_state": "mamba_d_state"},
+                deployment={"chips_per_layer": 1, "why": "the first of two pipeline stages"},
+                n_params=conf["n_params"] - 16 * per_layer)
+    conf["port"]["n_layers"] = 16
+    add("configs/hymba-1.5b-half.json", conf)
+    add("reference/hymba_twin.py", "from bench.reference.hymba import *  # noqa: F401,F403\n")
+    add("work/hymba_twin.py", "from bench.work.hymba import *  # noqa: F401,F403\n")
+    add("traffic/prefill_48.json", {"kind": "prefill_again", "batch": 3, "prompt": 48,
+                                    "warmup_steps": 1})
+    add("traffic/prefill_again.py", "from bench.traffic.prefill import Kind as _Prefill\n\n\n"
+                                    "class Kind(_Prefill):\n    pass\n")
+    add("metrics/steps_traced.py", "def read(r):\n    return r.trace.steps\n")
+    add("metrics/route_calls.prefill.py",
+        "import json\n\nfrom bench import spans\nfrom bench.harness import OUT\n\n\n"
+        "def read(r):\n"
+        "    path = r.ctx.cell.root / OUT / f'{r.ctx.cell.name}.trace.json'\n"
+        "    events = json.loads(path.read_text())['traceEvents']\n"
+        "    return spans.Spans(events, r.trace.start, r.trace.end).calls.get('moe.route')\n")
+    add("workloads/hymba-half-48.json", {"name": "hymba-half-48", "config": "hymba-1.5b-half",
+                                         "traffic": "prefill_48", "check_steps": 1,
+                                         "trace_steps": 2, "limits": {"logit_err": 0.12}})
+    b = json.loads((src / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "hymba-1.5b-half", "source": "test",
+                         "file": "bench/configs/hymba-1.5b-half.json",
+                         "reduced": ["num_hidden_layers"], "why": "test"})
+    b["workloads"].append({"name": "hymba-half-48", "config": "hymba-1.5b-half",
                            "traffic": "prefill_48", "chips": 1, "why": "test"})
-    for m in b["end_to_end"]:
-        if m["name"] == "prefill_tok_s":
-            m["workloads"].append("hymba-narrow-48")
-    b["per_layer"].append({"name": "steps_traced", "unit": "steps", "better": "higher",
-                           "source": "device_trace", "layer": "test", "moves": "prefill_tok_s",
-                           "workloads": ["hymba-narrow-48"]})
-    (root / "BENCHMARK.json").write_text(json.dumps(b))
-    res = _run(root, "hymba-narrow-48")
+    for m in b["end_to_end"] + b["per_layer"]:
+        if m["name"] in ("prefill_tok_s", "mfu.prefill"):
+            m["workloads"].append("hymba-half-48")
+    for name in ("steps_traced", "route_calls.prefill"):
+        b["per_layer"].append({"name": name, "unit": "calls", "better": "higher",
+                               "source": "program_span", "layer": "test",
+                               "moves": "prefill_tok_s", "workloads": ["hymba-half-48"]})
+    (src / "BENCHMARK.json").write_text(json.dumps(b))
+    with pytest.raises(FileNotFoundError, match="hymba-1.5b-half.json.*prefill_48.json"):
+        make_tiny_root(tmp_path / "early", src)
+    small = tiny("configs", "hymba-1.5b")
+    small["port"]["sliding_window"] = 8
+    add("tests/tiny/configs/hymba-1.5b-half.json", small)
+    add("tests/tiny/traffic/prefill_48.json", {"why": "small already", "mix": {}})
+
+    after = _hashes(src)
+    assert {k: after[k] for k in hashes} == hashes
+    assert _only_appended(old, json.loads((src / "BENCHMARK.json").read_text()))
+    for check in (_keeps_to_the_contract, _files_are_there, _hold_the_published_widths):
+        check(b, src)
+    assert missing_tiny(src) == []
+
+    from repro_torch import tracing
+    from repro_torch.launch import steps
+
+    make = steps.make_prefill_step
+
+    def routed(model, use_kernel=True):
+        fn = make(model, use_kernel)
+
+        def step(params, inputs):
+            with tracing.span("moe.route"):
+                return fn(params, inputs)
+
+        return step
+
+    monkeypatch.setattr(steps, "make_prefill_step", routed)
+    root = make_tiny_root(tmp_path / "tiny", src)
+    res = _run(root, "hymba-half-48")
     assert res["correct"] and set(res["metrics"]) == {"prefill_tok_s", "setup_s"}
     assert res["attempted"] % 3 == 0
-    traced = _run(root, "hymba-narrow-48", trace=True)
-    assert traced["metrics"]["steps_traced"]["value"] == 2 and traced["correct"]
+    traced = _run(root, "hymba-half-48", trace=True)
+    assert traced["correct"] and traced["metrics"]["steps_traced"]["value"] == 2
+    assert traced["metrics"]["route_calls.prefill"]["value"] == 2
 
 
 def test_the_control_in_the_programs_place_is_not_correct(tmp_path):
     """The reference with fp8 products in the program's place, at full depth
     and tiny widths, fails each cell's check under the cell's limits."""
-    from bench.tests import conftest
-
-    deep = {k: {**v, "n_layers": 32} for k, v in conftest.TINY_PORT.items()}
-    saved = conftest.TINY_PORT
-    conftest.TINY_PORT = deep
-    try:
-        root = make_tiny_root(tmp_path)
-    finally:
-        conftest.TINY_PORT = saved
+    root = make_tiny_root(tmp_path, full_depth=True)
     for name in CELLS:
         cell = harness.load_cell(name, root)
         kind = cell.module("traffic", cell.mix["kind"]).Kind(harness.build(cell, 7, CPU))

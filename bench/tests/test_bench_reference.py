@@ -1,6 +1,9 @@
 """The plain references against the program's plain path at reduced sizes,
 on the CPU, float32 on both sides; the chunked scans against step-by-step
-loops; and the references' independence from the program."""
+loops; and the references' independence from the program. The
+configurations are those of BENCHMARK.json's cells and the held ones, each
+at its tiny size (``bench/tests/tiny``), its reference loaded from its file;
+the decode comparison runs for those with a decode cell."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,14 +14,21 @@ import sys
 import pytest
 import torch
 
-from bench import weights
-from bench.reference import hymba as ref_hymba
+from bench import harness, weights
 from bench.reference import plain
-from bench.reference import rwkv6 as ref_rwkv6
-from bench.tests.conftest import ROOT, TINY_PORT
+from bench.tests.conftest import ROOT, cells, tiny
 
-FAMILIES = {"hymba-1.5b": ref_hymba, "rwkv6-3b": ref_rwkv6}
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+FILES = {c["name"]: c["file"] for c in BENCH["configs"]}
+CONFIGS = sorted({w["config"] for w in cells()})
 TOL = 2e-5                 # two float32 orders of summation, relative to the largest |entry|
+
+
+def _kind(traffic: str) -> str:
+    return harness.load_json(ROOT / "bench" / "traffic" / f"{traffic}.json")["kind"]
+
+
+DECODE = sorted({w["config"] for w in cells() if _kind(w["traffic"]) == "decode"})
 
 
 def _setup(name: str, seed: int = 5):
@@ -26,37 +36,38 @@ def _setup(name: str, seed: int = 5):
     from repro_torch.models import registry
     from repro_torch.models.params import abstract_params
 
-    conf = json.loads((ROOT / "bench" / "configs" / f"{name}.json").read_text())
-    port = {**TINY_PORT[name], "dtype": "float32"}
-    model = registry.build(dataclasses.replace(get_config(name), **port))
+    conf = json.loads((ROOT / FILES[name]).read_text())
+    port = {**tiny("configs", name)["port"], "dtype": "float32"}
+    model = registry.build(dataclasses.replace(get_config(conf["arch"]), **port))
     params = weights.make_params(abstract_params(model.schema), conf["init"], seed, "cpu")
     cfg = {**port, **conf.get("fixed", {})}
-    return model, params, cfg, conf
+    ref = harness.load_file(ROOT / "bench" / "reference" / f"{conf['reference']}.py",
+                            f"test_reference_{conf['reference']}")
+    return model, params, cfg, conf, ref
 
 
 def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_prefill_logits_match_the_program(name):
     from repro_torch.launch.steps import make_prefill_step
 
-    model, params, cfg, _ = _setup(name)
+    model, params, cfg, _, ref = _setup(name)
     toks = torch.randint(0, cfg["vocab_size"], (2, 80), generator=torch.Generator().manual_seed(1))
     prog = make_prefill_step(model, use_kernel=True)(params, toks)[:, -1]
-    ref = FAMILIES[name].prefill_last_logits(params, toks, cfg, plain.Precision())
-    assert _rel(prog, ref) < TOL
+    assert _rel(prog, ref.prefill_last_logits(params, toks, cfg, plain.Precision())) < TOL
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", DECODE)
 def test_decode_steps_and_cache_match_the_program(name):
     """Teacher-forced steps through the program's serving step against the
     reference run over all of them at once from the same seeded cache,
     past the ring's length (hymba's window is 16 here)."""
     from repro_torch.launch.steps import make_serve_step
 
-    model, params, cfg, conf = _setup(name)
+    model, params, cfg, conf, ref = _setup(name)
     B, T, pos0 = 2, 40, 50
     state = weights.make_state(model.cache_spec(B, 64), conf["state_init"], 3, "cpu")
     start = {k: v.clone() for k, v in state.items()}
@@ -66,7 +77,6 @@ def test_decode_steps_and_cache_match_the_program(name):
     for t in range(T):
         out, state = step(params, state, pos0 + t, toks[:, t:t + 1])
         logits.append(out[:, -1])
-    ref = FAMILIES[name]
     x, ref_state = ref.decode(params, toks, cfg, plain.Precision(), start, pos0)
     assert _rel(torch.stack(logits, 1), ref.head(params, x, plain.Precision())) < TOL
     assert set(ref_state) == set(state)
@@ -114,14 +124,17 @@ def test_fp8_control_rounds_to_three_mantissa_bits():
 
 
 def test_references_import_nothing_of_the_program():
-    """In a fresh process: the references, the benchmark's weights and the
-    work counts leave no module of the program, of JAX or of the JAX
-    package behind."""
-    code = ("import sys; sys.path.insert(0, %r)\n"
-            "import bench.reference.hymba, bench.reference.rwkv6, bench.work.hymba, "
-            "bench.work.rwkv6, bench.kernels, bench.peaks, bench.weights\n"
+    """In a fresh process: every file of the references and the work
+    counts, the benchmark's weights, kernels and peaks leave no module of
+    the program, of JAX or of the JAX package behind."""
+    files = sorted(str(p) for d in ("reference", "work") for p in (ROOT / "bench" / d).glob("*.py"))
+    code = ("import importlib.util, sys; sys.path.insert(0, %r)\n"
+            "import bench.kernels, bench.peaks, bench.weights\n"
+            "for i, f in enumerate(%r):\n"
+            "    spec = importlib.util.spec_from_file_location(f'isolated_{i}', f)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}))" % str(ROOT))
+            "{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}))" % (str(ROOT), files))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True)
     assert out.stdout.strip() == "[]"

@@ -20,11 +20,12 @@ from bench.tests.conftest import ROOT
 US = 1e6
 
 
-def span(name, a, b, tid=1, cat=None):
+def span(name, a, b, tid=1, cat=None, args=None):
     """A span as the trace files it: the harness's step a ``user_annotation``,
     the program's light ranges and the operators ``cpu_op`` events."""
     cat = cat or ("user_annotation" if name == "bench.step" else "cpu_op")
-    return {"ph": "X", "cat": cat, "name": name, "ts": a * US, "dur": (b - a) * US, "tid": tid}
+    return {"ph": "X", "cat": cat, "name": name, "ts": a * US, "dur": (b - a) * US, "tid": tid,
+            "args": args or {}}
 
 
 def launched(corr, t, kernel, a, dur, tid=1, cat="kernel"):
@@ -86,6 +87,70 @@ def test_spans_of_other_threads_do_not_claim_a_launch():
               span("attn", 0.0, 1.0, tid=2), *launched(1, 0.5, "k", 0.5, 0.1)]
     s = spans.Spans(events, 0.0, 1.0)
     assert s.inclusive("attn") == 0.0 and math.isclose(s.self_s("step.prefill"), 0.1)
+
+
+AUTOGRAD = {"Sequence number": 3, "Fwd thread id": 0}    # a Function's apply, a backward node
+
+
+@pytest.mark.parametrize("name, cat, args, found", [
+    ("step.prefill", "cpu_op", None, True), ("kernel.wkv6", "cpu_op", None, True),
+    ("moe.dispatch", "cpu_op", None, True), ("mla_latent", "cpu_op", None, True),
+    ("bench.step", "user_annotation", None, True), ("ProfilerStep#3", "user_annotation", None, True),
+    ("aten::mm", "cpu_op", None, False), ("c10d::allreduce_", "cpu_op", None, False),
+    ("nccl:all_reduce", "cpu_op", None, False), ("record_param_comms", "cpu_op", None, False),
+    ("detach", "cpu_op", None, False), ("detach_", "cpu_op", None, False),
+    ("_Constrain", "cpu_op", AUTOGRAD, False), ("_AllGather", "cpu_op", AUTOGRAD, False),
+    ("MulBackward0", "cpu_op", AUTOGRAD, False), ("_SetBackward", "cpu_op", AUTOGRAD, False),
+    ("moe.dispatch", "kernel", None, False), ("cudaLaunchKernel", "cuda_runtime", None, False)])
+def test_a_span_is_known_by_its_form(name, cat, args, found):
+    """Any host range the program opens is a span, whatever its name;
+    torch's operators, process-group ranges, autograd ranges and own ranges
+    are not."""
+    assert spans.is_span(span(name, 0.0, 1.0, cat=cat, args=args)) is found
+
+
+def test_a_span_under_a_new_name_takes_its_device_time():
+    events = [span("bench.step", 0.0, 1.0), span("step.prefill", 0.0, 0.9),
+              span("moe.route", 0.1, 0.2), span("moe.dispatch", 0.12, 0.15),
+              span("aten::index_select", 0.13, 0.14), *launched(1, 0.135, "gather", 0.3, 0.1),
+              *launched(2, 0.18, "topk", 0.5, 0.05)]
+    s = spans.Spans(events, 0.0, 1.0)
+    assert {"moe.route", "moe.dispatch"} <= s.names and "aten::index_select" not in s.names
+    assert math.isclose(s.inclusive("moe.route"), 0.15)
+    assert math.isclose(s.self_s("moe.dispatch"), 0.1) and math.isclose(s.self_s("moe.route"), 0.05)
+
+
+def test_a_span_the_program_opens_under_a_new_name_is_found(tmp_path):
+    """The program's own span, opened under a name it has never used, in a
+    CPU profile that also runs an autograd ``Function`` forward and a
+    backward pass: the span is found, and neither the ``Function``'s range
+    nor a backward node's is a span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    class _Twice(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * 2
+
+    w = torch.ones(4, 4, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.span("never.used_before"):
+            y = _Twice.apply(w @ w).sum()
+        y.backward()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+    assert {"_Twice", "_TwiceBackward", "SumBackward0", "MmBackward0"} <= names
+    assert {e["name"] for e in events if spans.is_span(e)} == {"never.used_before"}
+    assert spans.Spans(events, 0.0, math.inf).calls["never.used_before"] == 1
 
 
 # ------------------------------------------------------------- the metrics

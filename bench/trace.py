@@ -63,12 +63,6 @@ class Trace:
         edges = [self.start, *(t for iv in self.busy() for t in iv), self.end]
         return [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
 
-    def kernel_time(self, names: tuple[str, ...]) -> tuple[float, int]:
-        """Device seconds and count of the kernels whose name holds any of
-        ``names``."""
-        hits = [b - a for a, b, n in self.device if any(k in n for k in names)]
-        return sum(hits), len(hits)
-
     def _host_op_at(self, t: float, look_back: int = 64) -> str:
         """The innermost host operator running at ``t``: the latest to
         start of those that have not ended."""
